@@ -1,0 +1,30 @@
+"""disimpy_tpu_torch: the diffusion-MRI Monte Carlo simulator on PyTorch.
+
+A port of the JAX package ``disimpy_tpu`` (which stays the reference) to
+PyTorch with hand-written CUDA kernels for NVIDIA Hopper GPUs. It keeps
+the JAX package's module names and public API; ``simulation()`` takes an
+extra ``device`` argument ("cuda" by default). This package imports
+neither JAX nor ``disimpy_tpu``.
+
+Modules
+-------
+gradients
+    Gradient-waveform toolkit (synthesis, b-value math, rotation, Camino IO).
+substrates
+    Substrate factories and mesh preprocessing (acceleration grid).
+meshes
+    Procedural triangular-mesh generators and STL/PLY IO.
+simulations
+    The simulation driver and noise utilities.
+utils
+    Rotation helpers and optional matplotlib visualization.
+engine
+    The torch compute core and the CUDA kernel bindings.
+"""
+
+from . import gradients, meshes, simulations, substrates, utils
+
+__version__ = "0.1.0"
+
+__all__ = ["gradients", "meshes", "simulations", "substrates", "utils",
+           "__version__"]

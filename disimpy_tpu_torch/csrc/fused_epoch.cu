@@ -1,0 +1,286 @@
+// One J-step epoch of fused mesh physics, one thread per spin.
+//
+// Replaces disimpy_tpu/engine/pallas_fused.py::_kernel (launched by _launch,
+// wrapped by fused_epoch). Spins arrive sorted by anchor cell; each thread
+// runs all J steps of its spin: a fresh unit direction and a full segment
+// per step, then bounce passes until the segment is used up or max_iter
+// is hit. A pass folds the distance-ordered prefix of the anchor cell's
+// row that the spin can reach (feature-form Moller-Trumbore, strict-<
+// running minimum, ties to the lowest sublane r), then reflects or, with
+// probability perm, crosses the nearest hit.
+//
+// What bounds it on the H100: fp32 issue rate and warp divergence in the
+// bounce loop, not DRAM. A spin reads its cell's row straight from the
+// JAX table layout (16 contiguous floats per triangle, four float4 loads);
+// spins are sorted by anchor cell, so warp-mates read the same rows and
+// those are served from L1/L2.
+//
+// What the design does about it: each thread picks its OWN prefix level
+// from its own reach (distance to the anchor-cell box + remaining segment
+// + margin) instead of the TPU's maximum over a (run x 128-lane block)
+// segment, so a settled or short-segment spin folds no more than it needs
+// (on the TPU, benchmarks/README.md reports a fold-lane occupancy of 0.401
+// under the shared level). Both choices cover every triangle within reach,
+// so the accepted hits are the same.
+//
+// C interface (bound with ctypes): every entry point returns
+// cudaGetLastError() after its launch.
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBits = 6;
+constexpr int kMask6 = (1 << kBits) - 1;
+constexpr int kNumFine = 5;
+constexpr int kMaxJ = 5;
+constexpr float kEdgeTol = 1e-5f;   // barycentric leak-proofing tolerance
+constexpr float kSlack = 1e-5f;     // hit-acceptance slack (step lengths)
+constexpr float kReqMargin = 0.05f; // margin on the reach before the ladder
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+// Threefry2x32 (Salmon et al., SC'11), bit-equal to engine/krng.py.
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t x0, uint32_t x1,
+                                             int rounds, uint32_t* o0,
+                                             uint32_t* o1) {
+  const int rot[8] = {13, 15, 26, 6, 17, 29, 16, 24};
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  x0 += ks[0];
+  x1 += ks[1];
+  for (int r = 0; r < rounds; ++r) {
+    x0 += x1;
+    x1 = rotl32(x1, rot[r % 8]);
+    x1 ^= x0;
+    if (r % 4 == 3) {
+      const int g = r / 4 + 1;
+      x0 += ks[g % 3];
+      x1 += ks[(g + 1) % 3] + (uint32_t)g;
+    }
+  }
+  *o0 = x0;
+  *o1 = x1;
+}
+
+// krng.bounce_uniform: uniform in [0, 1) for the it-th collision resolve.
+__device__ __forceinline__ float bounce_uniform(int seed, int t, int id,
+                                                int it) {
+  uint32_t w0, w1;
+  threefry2x32((uint32_t)seed, (uint32_t)t, (uint32_t)id, (uint32_t)it + 1u,
+               13, &w0, &w1);
+  return (float)(w0 >> 8) * (1.0f / 16777216.0f);
+}
+
+}  // namespace
+
+// Scalars of one epoch launch; mirrors the ctypes Structure in
+// engine/fused_kernel.py field for field.
+struct EpochParams {
+  int n;         // spins
+  int J;         // epoch steps (<= kMaxJ)
+  int n_valid;   // steps inside the simulated window (trailing ones idle)
+  int seed;      // kernel RNG key (simulation seed ^ salt)
+  int t_base;    // absolute index of the epoch's first step
+  int max_iter;  // bounce-pass budget per step
+  float eps;     // surface offset after a collision (step lengths)
+  float dil[kMaxJ];        // dilation ladder the table was packed with
+  float fine[kNumFine];    // FINE_LADDER
+};
+
+__global__ void __launch_bounds__(128)
+fused_epoch_kernel(const float* __restrict__ pos,      // (3, n)
+                   const float* __restrict__ dirs,     // (J, 3, n)
+                   const int* __restrict__ ids,        // (n,)
+                   const int* __restrict__ start,      // (n,)
+                   const int* __restrict__ packed,     // (n,)
+                   const int* __restrict__ packed2,    // (n,)
+                   const float* __restrict__ corner,   // (3, n)
+                   const float* __restrict__ table,    // (units, 8, 128)
+                   const float* __restrict__ sv_width, // (3,)
+                   const float* __restrict__ perm_ptr, // ()
+                   float* __restrict__ out_pos,        // (J, 3, n)
+                   int* __restrict__ out_cross,        // (J, n)
+                   bool* __restrict__ out_exc,         // (n,)
+                   EpochParams p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.n) return;
+  const int n = p.n;
+  float x = pos[i], y = pos[n + i], z = pos[2 * n + i];
+  const float cx = corner[i], cy = corner[n + i], cz = corner[2 * n + i];
+  const float wx = sv_width[0], wy = sv_width[1], wz = sv_width[2];
+  const float perm = *perm_ptr;
+  const int id = ids[i];
+  const int row = start[i];
+  const int pk = packed[i];
+  const int pk2 = packed2[i];
+  bool exc = false;
+
+  for (int s = 0; s < p.J; ++s) {
+    int crossings = 0;
+    if (s < p.n_valid) {
+      float dx = dirs[(3 * s) * n + i];
+      float dy = dirs[(3 * s + 1) * n + i];
+      float dz = dirs[(3 * s + 2) * n + i];
+      float rem = 1.0f;
+      int iters = 1;
+      bool active = true;
+      for (int it = 0; active; ++it) {
+        // Cell-local frame, fold cross products, runtime prefix level.
+        const float xq = x - cx, yq = y - cy, zq = z - cz;
+        const float ccx = yq * dz - zq * dy;
+        const float ccy = zq * dx - xq * dz;
+        const float ccz = xq * dy - yq * dx;
+        const float ex = fmaxf(fmaxf(-xq, xq - wx), 0.0f);
+        const float ey = fmaxf(fmaxf(-yq, yq - wy), 0.0f);
+        const float ez = fmaxf(fmaxf(-zq, zq - wz), 0.0f);
+        const float req = sqrtf(ex * ex + ey * ey + ez * ez) + rem + kReqMargin;
+        int lvl = 0;
+        for (int k = 0; k < kNumFine; ++k) lvl += (p.fine[k] < req);
+        for (int l = 0; l < s; ++l) lvl += (p.dil[l] < req);
+        const int cnt = lvl < kNumFine
+                            ? (pk2 >> (kBits * lvl)) & kMask6
+                            : (pk >> (kBits * (lvl - kNumFine))) & kMask6;
+
+        // Fold: nearest forward hit; equal t resolves to the lowest
+        // sublane r, then to the earliest (unit, group) — the TPU order.
+        float best = CUDART_INF_F, bnx = 0.0f, bny = 0.0f, bnz = 0.0f;
+        int best_r = 8;
+        for (int c = 0; c < cnt; ++c) {
+          const float* unit = table + (size_t)(row + c) * 1024;
+          for (int g = 0; g < 8; ++g) {
+#pragma unroll
+            for (int r = 0; r < 8; ++r) {
+              const float4* f4 =
+                  reinterpret_cast<const float4*>(unit + r * 128 + 16 * g);
+              const float4 a = __ldg(f4), b = __ldg(f4 + 1);
+              const float4 c4 = __ldg(f4 + 2), d = __ldg(f4 + 3);
+              const float det = -(dx * a.x + dy * a.y + dz * a.z);
+              const float tn = (xq * a.x + yq * a.y + zq * a.z) - a.w;
+              const float un = (ccx * b.x + ccy * b.y + ccz * b.z) -
+                               (dx * b.w + dy * c4.x + dz * c4.y);
+              const float vn = -(ccx * c4.z + ccy * c4.w + ccz * d.x) -
+                               (dx * d.y + dy * d.z + dz * d.w);
+              const float inv = 1.0f / det;
+              const float t = tn * inv;
+              const float u = un * inv;
+              const float v = vn * inv;
+              const bool ok = (det != 0.0f) && (u >= -kEdgeTol) &&
+                              (u <= 1.0f + kEdgeTol) && (v >= -kEdgeTol) &&
+                              (u + v <= 1.0f + kEdgeTol) && (t > 0.0f);
+              if (ok && (t < best || (t == best && r < best_r))) {
+                best = t;
+                best_r = r;
+                bnx = a.x;
+                bny = a.y;
+                bnz = a.z;
+              }
+            }
+          }
+        }
+
+        // Resolve: accept, then reflect or cross, offset, consume.
+        const bool hit = best <= rem + kSlack;
+        active = false;
+        if (hit) {
+          const float rn =
+              rsqrtf(fmaxf(bnx * bnx + bny * bny + bnz * bnz, 1e-30f));
+          const float nx = bnx * rn, ny = bny * rn, nz = bnz * rn;
+          const float u_go =
+              perm > 0.0f ? bounce_uniform(p.seed, p.t_base + s, id, it)
+                          : 1.0f;
+          const bool go = u_go < perm;
+          crossings += go;
+          const float vx = best * dx, vy = best * dy, vz = best * dz;
+          const float dp = vx * nx + vy * ny + vz * nz;
+          const float flip = dp > 0.0f ? -1.0f : 1.0f;
+          const float nrx = nx * flip, nry = ny * flip, nrz = nz * flip;
+          const float dp_o = -fabsf(dp);
+          float ndx = vx - 2.0f * dp_o * nrx;
+          float ndy = vy - 2.0f * dp_o * nry;
+          float ndz = vz - 2.0f * dp_o * nrz;
+          const float nd_rn = rsqrtf(ndx * ndx + ndy * ndy + ndz * ndz);
+          ndx *= nd_rn;
+          ndy *= nd_rn;
+          ndz *= nd_rn;
+          const float ofs = go ? -p.eps : p.eps;
+          x = x + vx + ofs * nrx;
+          y = y + vy + ofs * nry;
+          z = z + vz + ofs * nrz;
+          if (!go) {
+            dx = ndx;
+            dy = ndy;
+            dz = ndz;
+          }
+          rem = rem - best;
+          active = rem > 0.0f && iters < p.max_iter;
+          if (active) ++iters;
+        }
+      }
+      // The settled spin advances by its remaining segment.
+      x = x + dx * rem;
+      y = y + dy * rem;
+      z = z + dz * rem;
+      exc = exc || iters >= p.max_iter;
+    }
+    out_pos[(3 * s) * n + i] = x;
+    out_pos[(3 * s + 1) * n + i] = y;
+    out_pos[(3 * s + 2) * n + i] = z;
+    out_cross[s * n + i] = crossings;
+  }
+  out_exc[i] = exc;
+}
+
+__global__ void threefry_kernel(const int* __restrict__ x0,
+                                const int* __restrict__ x1, int k0, int k1,
+                                int rounds, int n, int* __restrict__ o0,
+                                int* __restrict__ o1) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t w0, w1;
+  threefry2x32((uint32_t)k0, (uint32_t)k1, (uint32_t)x0[i], (uint32_t)x1[i],
+               rounds, &w0, &w1);
+  o0[i] = (int)w0;
+  o1[i] = (int)w1;
+}
+
+extern "C" {
+
+int fused_epoch_launch(const void* pos, const void* dirs, const void* ids,
+                       const void* start, const void* packed,
+                       const void* packed2, const void* corner,
+                       const void* table, const void* sv_width,
+                       const void* perm, void* out_pos, void* out_cross,
+                       void* out_exc, EpochParams p, void* stream) {
+  if (p.n > 0) {
+    const int threads = 128;
+    const int blocks = (p.n + threads - 1) / threads;
+    fused_epoch_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const float*)pos, (const float*)dirs, (const int*)ids,
+        (const int*)start, (const int*)packed, (const int*)packed2,
+        (const float*)corner, (const float*)table, (const float*)sv_width,
+        (const float*)perm, (float*)out_pos, (int*)out_cross,
+        (bool*)out_exc, p);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Device threefry words for (key, counter) pairs; used to check the device
+// cipher against engine/krng.py bit for bit.
+int threefry2x32_launch(const void* x0, const void* x1, int k0, int k1,
+                        int rounds, int n, void* o0, void* o1, void* stream) {
+  if (n > 0) {
+    const int threads = 256;
+    threefry_kernel<<<(n + threads - 1) / threads, threads, 0,
+                      (cudaStream_t)stream>>>((const int*)x0, (const int*)x1,
+                                              k0, k1, rounds, n, (int*)o0,
+                                              (int*)o1);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"
