@@ -8,13 +8,14 @@ the CUDA toolkit:
 Phases, one line each (any failure raises, so the exit code is non-zero):
 
 1. the card (name and power limit from nvidia-smi), torch and CUDA
-   versions, and the build of ``disimpy_tpu_torch/csrc/fused_epoch.cu``;
+   versions, and the builds of ``disimpy_tpu_torch/csrc/fused_epoch.cu``
+   and ``csrc/mesh_hit.cu`` (one nvcc each, started together);
 2. the kernel's device threefry against ``engine/krng.py``, bit for bit;
 3. the epoch kernel against its plain torch version on the bench bundle's
    pack (J = 4, perm 0 and 0.5; 16,384 sorted spins with equal iter_exc
    and transit counts, then the main path's 524,288): at most 0.5% of the
-   spins diverge (positions more than 1e-4 step lengths apart), and both
-   times;
+   spins diverge (positions more than 1e-4 step lengths apart), both
+   times, and the kernel's bound from the units the plain version folds;
 4. free diffusion through ``simulation()`` against exp(-bD) (<= 0.01);
 5. the closed cylinder mesh through ``simulation()`` against the vendored
    MISST signal (<= 0.015), with the leak checks of the JAX package's test;
@@ -24,7 +25,28 @@ Phases, one line each (any failure raises, so the exit code is non-zero):
    launches per run, finite signals, at most 1e-4 of the spins changing
    compartment, and every such spin replayed: its crossing must be
    reproduced by the plain version from the kernel's states, or lie where
-   two cylinders touch across the periodic boundary.
+   two cylinders touch across the periodic boundary;
+7. the nearest-hit kernel against its plain torch version on the bench
+   bundle's classic (halo) pack: 524,288 spins uniform in the voxel with
+   rem = 1 and rem uniform in (0, 1], in float32 (at most 1e-5 of the hit
+   masks differ; elsewhere |d| within 1e-5 step lengths and |normal dot|
+   >= 1 - 1e-5) and float64 (equal masks, |d| within 1e-12); both times
+   and the bound;
+8. the analytic oracles through ``simulation()``: sphere and cylinder
+   against MISST at small delta 30 ms and 1 ms (1e5 spins x 1000 steps x
+   100 b, <= 0.01), the equal-semiaxes ellipsoid against the sphere (3
+   decimals), and confinement from the final positions (no spin beyond
+   r + 1e-2 step lengths in the 30 ms sphere run, at most 1e-4 of the
+   spins in the others);
+9. the classic mesh engine: the closed cylinder mesh against MISST in
+   float64 (<= 0.015, no leak), a float32 trajectory run (file shape,
+   confinement), and the two runs the fused engine hands over (effective
+   epsilon above its budget, dt = 0.2 s), all through the nearest-hit
+   kernel;
+10. the bench workload through the classic engine (``use_fused =
+   False``): a warm-up and a timed run, kernel launches per run, finite
+   signals, at most 1e-4 of the spins changing compartment, beside phase
+   6's fused time.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the rest
@@ -49,6 +71,20 @@ DIFFUSIVITY = 2e-9
 # reference algorithm lets ~2e-5 through, mostly where the bundle's
 # cylinders touch across the periodic boundary (ROADMAP.md section 3).
 MAX_CHANGED = 1e-4
+# Published peaks of one H100 SXM (NVIDIA's data sheet; dense, outside the
+# tensor cores for floating point): the least time a kernel could take is
+# the larger of its bytes over HBM_RATE and its operations over the peak.
+HBM_RATE = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+
+
+def bound(n_bytes, flops, dtype="float32"):
+    """(bound_ms, bound_by) for a kernel that must move ``n_bytes`` and do
+    ``flops`` operations of ``dtype``."""
+    t_bytes = n_bytes / HBM_RATE
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def say(msg):
@@ -67,13 +103,18 @@ def card():
     say(smi)
     say(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__}; "
         f"CUDA {torch.version.cuda}; devices {torch.cuda.device_count()}")
+    from concurrent.futures import ThreadPoolExecutor
+
     from disimpy_tpu_torch.engine import _build
 
-    built = _build.load("fused_epoch")
-    regs = [ln.strip() for ln in built.log.splitlines()
-            if "registers" in ln or "spill" in ln]
-    say(f"build: csrc/fused_epoch.cu in {built.seconds:.2f} s -> "
-        f"{os.path.relpath(built.path, REPO)}; ptxas: {' | '.join(regs)}")
+    names = ("fused_epoch", "mesh_hit")
+    with ThreadPoolExecutor(len(names)) as pool:
+        builds = list(pool.map(_build.load, names))
+    for name, built in zip(names, builds):
+        regs = [ln.strip() for ln in built.log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        say(f"build: csrc/{name}.cu in {built.seconds:.2f} s -> "
+            f"{os.path.relpath(built.path, REPO)}; ptxas: {' | '.join(regs)}")
     return smi
 
 
@@ -197,7 +238,7 @@ def kernel_vs_plain(bench):
     """
     from dataclasses import replace
 
-    from disimpy_tpu_torch.engine import fused_kernel
+    from disimpy_tpu_torch.engine import fused, fused_kernel
     from disimpy_tpu_torch.simulations import _effective_epsilon
 
     base = bench["spec"]
@@ -214,8 +255,17 @@ def kernel_vs_plain(bench):
             args = (spec, *inputs, 0, J, seed_k, eps, 1000)
             ms, (kp, ke, kc) = _cuda_ms(
                 lambda: fused_kernel.fused_epoch(*args), 20)
+            fused_kernel.units_folded = 0
             plain_ms, (pp, pe, pc) = _cuda_ms(
                 lambda: fused_kernel.fused_epoch_reference(*args), 1)
+            units = fused_kernel.units_folded
+            # Bytes: the whole table read once, each spin's inputs (pos 3,
+            # dirs 3J, corner 3 floats, four int32 words) and outputs
+            # (positions 3J floats, J transit counts, one exc byte).
+            n_bytes = (spec.table.numel() * 4 + n * (4 * (6 + 3 * J) + 16)
+                       + n * (16 * J + 1))
+            flops = units * fused.UNIT_TRIS * fused_kernel.FLOPS_PER_TRIANGLE
+            bound_ms, bound_by = bound(n_bytes, flops)
             err = (kp - pp).abs().amax(dim=(0, 1))
             counts_differ = (ke != pe) | (kc != pc).any(dim=0)
             if n == 16384 and bool(counts_differ.any()):
@@ -231,9 +281,12 @@ def kernel_vs_plain(bench):
                 f"transits (kernel {int(kc.sum())}, plain {int(pc.sum())}); "
                 f"divergent fraction {frac_div:.6f}; max |err| {max_err:.3g} "
                 f"step lengths; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms "
-                "per epoch")
+                f"per epoch; {units} units folded = {flops:.4g} flops, "
+                f"{n_bytes / 1e6:.1f} MB -> bound {bound_ms:.4f} ms "
+                f"({bound_by})")
             record[n, perm] = dict(max_abs_err=max_err, ms=ms,
-                                   plain_ms=plain_ms, divergent=frac_div)
+                                   plain_ms=plain_ms, divergent=frac_div,
+                                   bound_ms=bound_ms, bound_by=bound_by)
     return record
 
 
@@ -460,24 +513,378 @@ def bench_run(bench, smi):
     return runs
 
 
+def mesh_hit_vs_plain(bench):
+    """Phase 7: the nearest-hit kernel against its plain version on the
+    bench bundle's classic pack, float32 and float64, rem = 1 and rem
+    uniform in (0, 1]. Returns the float32 rem = 1 record (the shape of a
+    step's first, full-batch query)."""
+    from disimpy_tpu_torch import simulations
+    from disimpy_tpu_torch.engine import mesh_kernel
+
+    sub, step_l = bench["substrate"], bench["step_l"]
+    scale = 1.0 / step_l
+    n = 524288
+    g = torch.Generator(device="cuda").manual_seed(5)
+    records = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).removeprefix("torch.")
+        t0 = time.perf_counter()
+        spec = simulations._classic_mesh_spec(sub, scale, dtype,
+                                              torch.device("cuda"))
+        t_pack = time.perf_counter() - t0
+        if tuple(spec.spans) != (1, 1, 1):
+            raise AssertionError("the bench bundle's classic pack is not halo")
+        say(f"classic pack ({name}): tri {tuple(spec.tri.shape)}, "
+            f"{spec.tri.numel() * spec.tri.element_size() / 1e6:.1f} MB, "
+            f"{t_pack:.2f} s host")
+        vox = spec.voxel_size.to(dtype)
+        r0 = (torch.rand((n, 3), generator=g, device="cuda", dtype=dtype)
+              * vox)
+        direction = torch.randn((n, 3), generator=g, device="cuda",
+                                dtype=dtype)
+        direction = direction / direction.norm(dim=1, keepdim=True)
+        for rem_kind in ("1", "uniform"):
+            if rem_kind == "1":
+                rem = torch.ones(n, dtype=dtype, device="cuda")
+            else:
+                rem = 1.0 - torch.rand(n, generator=g, device="cuda",
+                                       dtype=dtype)
+            args = (spec, r0.contiguous(), direction.contiguous(), rem)
+            ms, (dk, nk) = _cuda_ms(lambda: mesh_kernel.nearest_hit(*args), 20)
+            plain_ms, (dp, np_) = _cuda_ms(
+                lambda: mesh_kernel.nearest_hit_reference(*args), 3)
+            # Hit masks (d <= rem: the hits the engine acts on) and forward
+            # masks (any finite d); distances and normals are held on the
+            # spins that hit in both, and the far forward hits are shown.
+            hk, hp = dk <= rem, dp <= rem
+            fk, fp = torch.isfinite(dk), torch.isfinite(dp)
+            differ = (hk != hp) | (fk != fp)
+            both = hk & hp
+            err = float((dk - dp)[both].abs().max())
+            align = (nk * np_).sum(dim=1).abs()[both]
+            worst = float(align.min())
+            far = fk & fp & ~both
+            rel_far = float(((dk - dp).abs() / dp)[far].max())
+            n_differ = int(differ.sum())
+            if name == "float32":
+                ok = (n_differ <= 1e-5 * n and err <= 1e-5
+                      and worst >= 1 - 1e-5)
+            else:
+                ok = n_differ == 0 and err <= 1e-12 and worst >= 1 - 1e-12
+            # The work this input needs: one test per record of each
+            # spin's row; each touched row's records read once, the spins'
+            # inputs read once and outputs written once.
+            cell, _ = mesh_kernel.halo_cells(*args)
+            tested = int(spec.cell_counts[cell].sum())
+            touched = torch.unique(cell)
+            item = spec.tri.element_size()
+            n_bytes = (int(spec.cell_counts[touched].sum()) * 12 * item
+                       + spec.cell_counts.numel() * 4 + n * 7 * item
+                       + n * 4 * item)
+            flops = tested * mesh_kernel.FLOPS_PER_RECORD
+            bound_ms, bound_by = bound(n_bytes, flops, name)
+            say(f"mesh_hit vs plain ({name}, rem {rem_kind}): {n} spins, "
+                f"{int(hk.sum())} hits within rem ({int(fk.sum())} forward "
+                f"hits); {n_differ} spins with other masks; max |d| diff "
+                f"{err:.3g} step lengths on the hits (on the farther forward "
+                f"hits: {rel_far:.3g} relative); min |normal dot| "
+                f"{worst:.9f} on the hits; "
+                f"{tested / n:.1f} records tested per spin (max "
+                f"{int(spec.cell_counts[cell].max())}); kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.3f} ms; {flops:.4g} flops, "
+                f"{n_bytes / 1e6:.1f} MB -> bound {bound_ms:.4f} ms "
+                f"({bound_by})")
+            if not ok:
+                raise AssertionError(f"mesh_hit ({name}, rem {rem_kind}) "
+                                     "disagrees with its plain version")
+            records[name, rem_kind] = dict(
+                ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms,
+                bound_by=bound_by)
+    record = dict(records["float32", "1"])
+    record["max_abs_err"] = max(r["max_abs_err"] for r in records.values())
+    return record
+
+
+def _misst_gradient(small_delta_ms, n_t=1000):
+    """The PGSE protocols of the vendored MISST signals (100 b-values)."""
+    from disimpy_tpu_torch import gradients
+
+    bs = np.linspace(1, 3e9, 100)
+    if small_delta_ms == 30:
+        T, n0, lobe = 70e-3, 700, 300
+    else:
+        T, n0, lobe = 41e-3, 410, 10
+    gradient = np.zeros((1, n0, 3))
+    gradient[0, 1:lobe, 0] = 1
+    gradient[0, -lobe:-1, 0] = -1
+    gradient = np.concatenate([gradient for _ in bs], axis=0)
+    gradient, dt = gradients.interpolate_gradient(gradient, T / (n0 - 1), n_t)
+    return gradients.set_b(gradient, dt, bs), dt
+
+
+def analytic_oracles():
+    """Phase 8: sphere and cylinder against MISST, ellipsoid == sphere,
+    sphere confinement."""
+    from disimpy_tpu_torch import simulations, substrates
+
+    n, r = 100000, 5e-6
+    for kind in ("sphere", "cylinder"):
+        for small_delta in (30, 1):
+            gradient, dt = _misst_gradient(small_delta)
+            sub = (substrates.sphere(r) if kind == "sphere" else
+                   substrates.cylinder(r, np.array([0.0, 0.0, 1.0])))
+            t0 = time.perf_counter()
+            signals, pos = simulations.simulation(
+                n, DIFFUSIVITY, gradient, dt, sub, quiet=True, final_pos=True,
+                device="cuda")
+            wall = time.perf_counter() - t0
+            misst = np.loadtxt(os.path.join(
+                ORACLES, f"misst_{kind}_signal_smalldelta_{small_delta}ms_"
+                "bigdelta_40ms_radius_5um.txt"))
+            err = float(np.abs(signals / n - misst).max())
+            step_l = np.sqrt(6 * DIFFUSIVITY * dt)
+            radial = (np.linalg.norm(pos, axis=1) if kind == "sphere"
+                      else np.linalg.norm(pos[:, :2], axis=1))
+            over = (radial.max() - r) / step_l
+            escaped = int((radial > r + 1e-2 * step_l).sum())
+            # A float32 step that ends within rounding of the wall can land
+            # outside it; moving outward next, the impermeable far-root
+            # rule finds no root and the spin leaves (the JAX package: 1
+            # of 1e5 sphere spins at small delta 1 ms, ROADMAP section 3).
+            allowed = 0 if (kind, small_delta) == ("sphere", 30) else 1e-4 * n
+            say(f"{kind} MISST, small delta {small_delta} ms: {n} spins x "
+                f"1000 steps x 100 b in {wall:.1f} s, max |S/n - MISST| = "
+                f"{err:.5f} (limit 0.01); {escaped} spins beyond r + 1e-2 "
+                f"step lengths (limit {allowed:g}), max radius - r = "
+                f"{over:.3g} step lengths")
+            if not err <= 0.01:
+                raise AssertionError(f"{kind} misses the MISST oracle")
+            if escaped > allowed:
+                raise AssertionError(f"{kind} does not confine its spins")
+            if kind == "sphere" and small_delta == 30:
+                sphere_30 = signals
+    gradient, dt = _misst_gradient(30)
+    ellipsoid = simulations.simulation(
+        n, DIFFUSIVITY, gradient, dt, substrates.ellipsoid(np.ones(3) * r),
+        quiet=True, device="cuda")
+    diff = float(np.abs(ellipsoid / n - sphere_30 / n).max())
+    say(f"ellipsoid with equal semiaxes vs sphere: max |diff| = {diff:.3g} "
+        "(3 decimals: < 1.5e-3)")
+    if not diff < 1.5e-3:
+        raise AssertionError("the equal-semiaxes ellipsoid is not the sphere")
+
+
+def _closed_cylinder():
+    from disimpy_tpu_torch import substrates
+
+    with open(os.path.join(ORACLES, "cylinder_mesh_closed.pkl"), "rb") as f:
+        mesh = pickle.load(f)
+    return substrates.mesh(
+        mesh["vertices"], mesh["faces"], True, padding=np.zeros(3),
+        init_pos="intra", n_sv=np.array([10, 10, 10]), quiet=True,
+    )
+
+
+def classic_mesh():
+    """Phase 9: the classic mesh engine (float64 MISST, float32
+    trajectories) through the nearest-hit kernel."""
+    import tempfile
+
+    from disimpy_tpu_torch import simulations
+    from disimpy_tpu_torch.engine import mesh_kernel
+
+    substrate = _closed_cylinder()
+    gradient, dt = _misst_gradient(30)
+    n = 10000
+    mesh_kernel.launches = 0
+    t0 = time.perf_counter()
+    signals, pos = simulations.simulation(
+        n, DIFFUSIVITY, gradient, dt, substrate, final_pos=True, quiet=True,
+        dtype="float64", device="cuda",
+    )
+    wall = time.perf_counter() - t0
+    launched = mesh_kernel.launches
+    misst = np.loadtxt(os.path.join(
+        ORACLES,
+        "misst_cylinder_signal_smalldelta_30ms_bigdelta_40ms_radius_5um.txt"))
+    err = float(np.abs(signals / n - misst).max())
+    r = np.max(np.linalg.norm(
+        substrate.vertices[:, 0:2] - substrate.voxel_size[0:2] / 2, axis=1))
+    length = substrate.voxel_size[2]
+    centre = np.max(substrate.vertices, axis=0)[0:2] / 2
+    radial = np.linalg.norm(pos[:, 0:2] - centre, axis=1)
+    leak = not (pos[:, 2].min() > 0 and pos[:, 2].max() < length
+                and radial.max() < r)
+    say(f"classic mesh MISST (float64): {n} intra spins x 1000 steps x 100 b "
+        f"in {wall:.1f} s, {launched} mesh_hit launches; max |S/n - MISST| "
+        f"= {err:.5f} (limit 0.015), leak {'YES' if leak else 'none'}")
+    if not err <= 0.015:
+        raise AssertionError("classic mesh signal misses the MISST oracle")
+    if leak:
+        raise AssertionError("spins left the closed cylinder")
+    if launched <= 0:
+        raise AssertionError("the classic mesh run did not launch mesh_hit")
+
+    n_s, n_t = 100, 100
+    gradient, dt = _misst_gradient(30, n_t)
+    mesh_kernel.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        traj = os.path.join(tmp, "traj.txt")
+        _, pos = simulations.simulation(
+            n_s, DIFFUSIVITY, gradient, dt, substrate, traj=traj,
+            final_pos=True, quiet=True, device="cuda")
+        trajectories = np.loadtxt(traj)
+    launched = mesh_kernel.launches
+    if trajectories.shape != (n_t + 1, 3 * n_s):
+        raise AssertionError(f"trajectory file shape {trajectories.shape}")
+    trajectories = trajectories.reshape(n_t + 1, n_s, 3)
+    radial = np.linalg.norm(trajectories[..., 0:2] - centre, axis=2)
+    confined = (radial.max() < r and trajectories[..., 2].min() > 0
+                and trajectories[..., 2].max() < length
+                and np.allclose(trajectories[-1], pos, rtol=1e-7, atol=1e-16))
+    say(f"classic mesh trajectories (float32): {n_s} spins x {n_t} steps, "
+        f"file {(n_t + 1, 3 * n_s)}, {launched} mesh_hit launches, "
+        f"{'confined' if confined else 'NOT confined'}")
+    if not confined:
+        raise AssertionError("trajectory file not confined or not final_pos")
+    if launched <= 0:
+        raise AssertionError("the trajectory run did not launch mesh_hit")
+
+    # The runs the fused engine hands over: an effective epsilon above its
+    # table's drift budget, and steps five voxels long (no fused
+    # configuration fits; the halo row holds ~340 periodic images).
+    gradient = np.zeros((2, 20, 3))
+    gradient[1, 2:8, 0], gradient[1, 12:18, 0] = 0.05, -0.05
+    for label, n_s, kw in (("epsilon 1e-7 m", 64, dict(epsilon=1e-7, dt=1e-4)),
+                           ("dt 0.2 s", 8, dict(dt=0.2))):
+        sub = _closed_cylinder()
+        mesh_kernel.launches = 0
+        signals = simulations.simulation(
+            n_s, DIFFUSIVITY, gradient[:, :3] if kw["dt"] > 0.1 else gradient,
+            substrate=sub, quiet=True, device="cuda", **kw)
+        launched = mesh_kernel.launches
+        classic = any(k[0] == "classic-torch" for k in sub._accel_cache)
+        say(f"fused handover ({label}): {n_s} spins, classic engine "
+            f"{'used' if classic else 'NOT used'}, {launched} mesh_hit "
+            f"launches, signals {signals.round(6).tolist()}")
+        if not (classic and launched > 0 and np.all(np.isfinite(signals))
+                and abs(signals[0] - n_s) < 1e-6 * n_s):
+            raise AssertionError(f"fused handover ({label}) failed")
+
+
+def classic_bench(bench, smi, fused_runs):
+    """Phase 10: the bench workload through the classic engine."""
+    from disimpy_tpu_torch import simulations
+    from disimpy_tpu_torch.engine import config, fused_kernel, mesh_kernel
+
+    n, n_t = 524288, 150
+    sub, step_l = bench["substrate"], bench["step_l"]
+    r = bench["radius"]
+    lo, hi = r * math.cos(math.pi / 32) * (1 - 1e-4), r * (1 + 1e-4)
+    centers, vox = _bundle_axes(bench)
+    scale = 1.0 / step_l
+    runs = {}
+    try:
+        config.use_fused = False
+        for label, seed in (("warm-up", 1), ("timed", 2)):
+            mesh_kernel.launches = 0
+            fused_kernel.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            signals, pos = simulations.simulation(
+                n, DIFFUSIVITY, bench["gradient"], bench["dt"], sub,
+                seed=seed, quiet=True, final_pos=True, device="cuda",
+            )
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = mesh_kernel.launches
+            if launched <= 0 or fused_kernel.launches:
+                raise AssertionError(
+                    f"{label}: {launched} mesh_hit and {fused_kernel.launches}"
+                    " fused_epoch launches; the classic engine must launch "
+                    "mesh_hit only")
+            if not np.all(np.isfinite(signals)):
+                raise AssertionError(f"{label}: non-finite signals")
+            pos0 = simulations._uniform_positions(
+                n, np.asarray(sub.voxel_size) * scale, seed, "cuda")
+            d0 = _nearest(pos0.cpu().numpy().T[:, :2].astype(float) * step_l,
+                          centers, vox)
+            d1 = _nearest(pos[:, :2], centers, vox)
+            inside, outside = d0 < lo, d0 > hi
+            changed = np.nonzero((inside & (d1 >= hi))
+                                 | (outside & (d1 <= lo)))[0]
+            if len(changed) > MAX_CHANGED * n:
+                raise AssertionError(
+                    f"{label}: {len(changed)} of {n} spins changed "
+                    "compartment")
+            say(f"classic bench {label}: {n} spins x {n_t} steps x 32 meas "
+                f"in {wall:.3f} s = {n * n_t / wall:.6g} spin-steps/s "
+                f"({smi}); {launched} mesh_hit launches; signals finite; "
+                f"{len(changed)} compartment changes; fused engine "
+                f"{label} run (phase 6): {fused_runs[label]['wall']:.3f} s")
+            runs[label] = dict(wall=wall, launches=launched,
+                               changed=len(changed))
+    finally:
+        config.use_fused = None
+    return runs
+
+
 def main():
-    smi = card()
-    threefry_check()
-    bench = bench_setup()
-    kp = kernel_vs_plain(bench)
-    free_oracle()
-    misst_oracle()
-    runs = bench_run(bench, smi)
-    print(json.dumps({"kernels": [{
-        "name": "fused_epoch",
-        "route": "cuda",
-        "source": "disimpy_tpu_torch/csrc/fused_epoch.cu",
-        "replaces": "disimpy_tpu/engine/pallas_fused.py:277",
-        "launches": runs["timed"]["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in kp.values()),
-        "ms": kp[524288, 0.0]["ms"],
-        "plain_ms": kp[524288, 0.0]["plain_ms"],
-    }]}))
+    phases = (
+        "card", "threefry", "bench setup", "fused kernel vs plain", "free",
+        "mesh MISST", "fused bench", "mesh_hit vs plain", "analytic oracles",
+        "classic mesh", "classic bench",
+    )
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        say(f"[phase {name}: {walls[name]:.1f} s]")
+        return out
+
+    smi = timed(phases[0], card)
+    timed(phases[1], threefry_check)
+    bench = timed(phases[2], bench_setup)
+    kp = timed(phases[3], kernel_vs_plain, bench)
+    timed(phases[4], free_oracle)
+    timed(phases[5], misst_oracle)
+    runs = timed(phases[6], bench_run, bench, smi)
+    mh = timed(phases[7], mesh_hit_vs_plain, bench)
+    timed(phases[8], analytic_oracles)
+    timed(phases[9], classic_mesh)
+    classic = timed(phases[10], classic_bench, bench, smi, runs)
+    say(f"phases took {sum(walls.values()):.1f} s in all")
+    k1 = kp[524288, 0.0]
+    print(json.dumps({"kernels": [
+        {
+            "name": "fused_epoch",
+            "route": "cuda",
+            "source": "disimpy_tpu_torch/csrc/fused_epoch.cu",
+            "replaces": "disimpy_tpu/engine/pallas_fused.py:277",
+            "launches": runs["timed"]["launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in kp.values()),
+            "ms": k1["ms"],
+            "plain_ms": k1["plain_ms"],
+            "bound_ms": k1["bound_ms"],
+            "bound_by": k1["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "mesh_hit",
+            "route": "cuda",
+            "source": "disimpy_tpu_torch/csrc/mesh_hit.cu",
+            "replaces": "disimpy_tpu/engine/pallas_mesh.py:119",
+            "launches": classic["timed"]["launches"],
+            "max_abs_err": mh["max_abs_err"],
+            "ms": mh["ms"],
+            "plain_ms": mh["plain_ms"],
+            "bound_ms": mh["bound_ms"],
+            "bound_by": mh["bound_by"],
+            "library_ms": None,
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

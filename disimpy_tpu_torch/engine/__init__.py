@@ -4,10 +4,26 @@ Layout
 ------
 ``krng``
     Counter-based Threefry2x32 streams keyed per (seed, step, spin id).
+``rng``
+    The classic engine's draws (step directions, permeability uniforms)
+    on krng streams.
 ``geometry``
-    The ray/triangle test used by mesh point seeding.
+    Ray/triangle test, reflection and crossing, in (n, 3) and (3, n)
+    layouts.
+``specs``
+    The classic engine's substrate specs (free, sphere, cylinder,
+    ellipsoid, mesh) and ``spec_from_numpy``.
+``stepping``
+    One time step per substrate kind: the analytic bounce loops and the
+    per-bounce mesh step.
 ``core``
-    Free-diffusion window, signal reduction, the float32 matmul guard.
+    The classic engine's time loop (``run_window``), signal reduction,
+    the float32 matmul guard.
+``mesh_accel``
+    The classic mesh table pack (host NumPy) and its gather query.
+``mesh_kernel``
+    Nearest hit per spin on the halo layout: the CUDA kernel's binding and
+    its plain torch version.
 ``fused``
     The fused mesh engine: the table pack (host NumPy) and the epoch driver.
 ``fused_kernel``
@@ -16,5 +32,5 @@ Layout
 ``_build``
     Builds ``csrc/*.cu`` with nvcc at first use and loads it with ctypes.
 ``config``
-    Engine selection.
+    Engine and query selection.
 """

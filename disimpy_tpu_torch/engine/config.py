@@ -1,9 +1,8 @@
 """Engine selection.
 
 ``use_fused``: None or True (use the fused-step mesh engine for float32
-runs without trajectory output — the only mesh engine this package has so
-far), or False (ask for the classic per-bounce engine, which raises
-``NotImplementedError`` until it is ported).
+runs without trajectory output), or False (always use the classic
+per-bounce engine).
 """
 
 use_fused = None
@@ -22,3 +21,22 @@ def mesh_engine(dtype, needs_traj):
     if use_fused is False:
         return "classic"
     return "fused"
+
+
+def mesh_query_backend(spec, dtype, device):
+    """Resolve the classic engine's nearest-hit query: "kernel" or "gather".
+
+    "kernel" (``engine/mesh_kernel.py``, the CUDA kernel) for the halo
+    layout (``spans == (1, 1, 1)``) on a CUDA device, in float32 and
+    float64; "gather" (``engine/mesh_accel.nearest_hit``) for the per-cell
+    layout on any device and for every CPU tensor. The choice follows the
+    layout and the device alone.
+    """
+    import torch
+
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the mesh query runs in float32 or float64, not {dtype}")
+    halo = tuple(spec.spans) == (1, 1, 1)
+    if halo and torch.device(device).type == "cuda":
+        return "kernel"
+    return "gather"

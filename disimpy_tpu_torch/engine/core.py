@@ -1,4 +1,5 @@
-"""Free-diffusion window, signal reduction and the float32 matmul guard.
+"""The time loop of the classic engine, signal reduction and the float32
+matmul guard.
 
 Phase accrual is the MR physics: after step t each spin gains
 ``phi += GAMMA * dt * g(t) . r(t)``. With positions in step-length units and
@@ -13,11 +14,15 @@ ordered or split.
 
 import torch
 
-from . import krng
+from . import rng
+from .stepping import STEP_FUNCTIONS
 
 # Mixed into the simulation seed for the free-diffusion step directions, so
 # they are independent of the mesh engine's streams (engine/fused.py).
 FREE_SALT = 0x66726565
+# Mixed into the simulation seed for the classic engine's draws (analytic
+# substrates and the per-bounce mesh engine).
+CLASSIC_SALT = 0x636C6173
 
 
 def require_full_fp32():
@@ -36,25 +41,72 @@ def require_full_fp32():
         )
 
 
-def run_window_free(positions, phases, g_eff, ts, seed32):
-    """Advance free diffusion through the time steps ``ts``.
+def run_window(kind, spec, positions, phases, iter_exc, g_eff, ts, seed32,
+               epsilon, max_iter, collect_positions=False, track=None):
+    """Advance the ensemble through the time steps ``ts``.
 
-    ``positions`` (3, n) and ``phases`` (n_meas, n) are float32 tensors on
-    one device; ``g_eff`` (len(ts), n_meas, 3) is on the same device; ``ts``
-    is a sequence of absolute step indices (keys the per-step streams);
-    ``seed32`` an int32-range simulation seed. Returns the new
-    ``(positions, phases)``.
+    Parameters
+    ----------
+    kind : str
+        Substrate kind ("free", "sphere", "cylinder", "ellipsoid", "mesh").
+    spec : engine.specs dataclass
+        Substrate geometry in step-length units, on the ensemble's device.
+    positions : torch.Tensor
+        (3, n) positions in step-length units (substrate frame), in the
+        engine dtype.
+    phases : torch.Tensor
+        (n_meas, n) accumulated phases (rad), in the engine dtype.
+    iter_exc : torch.Tensor
+        (n,) bool: spins that have exceeded the collision-iteration budget.
+    g_eff : torch.Tensor
+        (len(ts), n_meas, 3) per-step phase coefficients in the engine dtype.
+    ts : sequence of int
+        Absolute time-step indices (they key the per-step streams, so a
+        windowed run reproduces a single full one).
+    seed32 : int
+        Int32-range value derived from the simulation seed.
+    epsilon : float
+        Surface offset after collisions (step-length units).
+    max_iter : int
+        Collision-iteration budget per step.
+    collect_positions : bool
+        If True, also return the positions after every step of the window
+        (trajectory output).
+    track : None
+        Compartment tracking ("exchange") is not ported yet.
+
+    Returns
+    -------
+    (positions, phases, iter_exc), trajectory
+        ``trajectory`` is (len(ts), 3, n) when ``collect_positions`` else
+        None.
     """
+    if track is not None:
+        raise NotImplementedError(
+            "compartment tracking (track='exchange') comes with slice 3 of "
+            "the port"
+        )
     require_full_fp32()
+    step_fn = STEP_FUNCTIONS[kind]
     n = positions.shape[1]
+    dtype = positions.dtype
     ids = torch.arange(n, dtype=torch.int32, device=positions.device)
-    seed_k = int(seed32) ^ FREE_SALT
+    seed_k = int(seed32) ^ (FREE_SALT if kind == "free" else CLASSIC_SALT)
+    trajectory = None
+    if collect_positions:
+        trajectory = torch.empty((len(ts), 3, n), dtype=dtype,
+                                 device=positions.device)
     for i, t in enumerate(ts):
-        positions = positions + krng.unit_directions(
-            seed_k, int(t), ids, positions.dtype
+        positions, exc_t, _ = step_fn(
+            positions, spec, epsilon, max_iter,
+            rng.step_directions(seed_k, t, ids, dtype),
+            rng.bounce_uniforms(seed_k, t, ids, dtype),
         )
         phases = phases + g_eff[i] @ positions
-    return positions, phases
+        iter_exc = iter_exc | exc_t
+        if collect_positions:
+            trajectory[i] = positions
+    return (positions, phases, iter_exc), trajectory
 
 
 def reduce_signal(phases, iter_exc):

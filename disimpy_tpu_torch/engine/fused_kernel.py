@@ -32,6 +32,14 @@ _CHUNK = 4096
 # went through the kernel.
 launches = 0
 
+# 64-triangle units folded by the plain version since import (or since a
+# caller reset it): the kernel folds the same units, so this counts the
+# work an epoch needs (its operations are units x 64 x FLOPS_PER_TRIANGLE).
+units_folded = 0
+# Floating-point operations of one feature-form triangle test (det, t, u,
+# v numerators: 6 + 6 + 11 + 12; one reciprocal, three products, u + v).
+FLOPS_PER_TRIANGLE = 40
+
 
 class EpochParams(ctypes.Structure):
     """Scalars of one launch; field for field the ``EpochParams`` struct of
@@ -203,7 +211,9 @@ def _fold_units(table, start, cnt, q, d, cc):
     running best only if it is strictly nearer or equally near with a
     lower r.
     """
+    global units_folded
     a = start.shape[0]
+    units_folded += int(cnt.sum())
     inf = torch.tensor(float("inf"), dtype=torch.float32, device=q.device)
     best = torch.full((a,), float("inf"), dtype=torch.float32, device=q.device)
     best_r = torch.full((a,), 8, dtype=torch.int64, device=q.device)

@@ -1,9 +1,10 @@
 """Batched geometric primitives on torch tensors.
 
-Only the ray/triangle test that mesh point seeding needs lives here; the
-collision geometry of the fused engine is inside its kernel
-(``engine/fused_kernel.py``). The operation order follows the JAX package's
-``engine/geometry.py`` so that float32 results agree bit for bit on the CPU.
+Every function is vectorised over a leading batch of spins. Misses are
+encoded as ``inf``/``nan`` distances and "do nothing" updates are selected
+with ``torch.where`` by the callers. The operation order follows the JAX
+package's ``engine/geometry.py`` so that float32 results agree bit for bit
+on the CPU.
 """
 
 import torch
@@ -26,12 +27,13 @@ def cross3(a, b):
     )
 
 
-def ray_triangle_intersection(triangles, r0, step):
-    """Moller-Trumbore signed ray/triangle intersection distance.
+def normalize(v):
+    """Scale vectors on the last axis to unit length."""
+    return v / torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
 
-    Hits count for barycentric ``u, v`` in [0, 1] with no tolerance band:
-    parity ray-casting (point seeding) would double-count shared edges in a
-    widened band and flip the parity.
+
+def ray_triangle_intersection(triangles, r0, step, edge_tol=0.0):
+    """Moller-Trumbore signed ray/triangle intersection distance.
 
     Parameters
     ----------
@@ -42,6 +44,13 @@ def ray_triangle_intersection(triangles, r0, step):
     step : torch.Tensor
         Shape (..., 3): ray directions; the returned distance is in units of
         ``|step|``.
+    edge_tol : float, optional
+        Barycentric tolerance: hits with ``u, v in [-edge_tol,
+        1 + edge_tol]`` count. The collision path uses a small positive
+        tolerance so rounding cannot open a gap along shared triangle edges
+        (a spin slipping between two adjacent triangles is a leak). Parity
+        ray-casting (point seeding) uses 0: a widened band there would
+        double-count shared edges and flip the parity.
 
     Returns
     -------
@@ -63,6 +72,81 @@ def ray_triangle_intersection(triangles, r0, step):
     t = inv_det * dot3(Q, E2)
     u = inv_det * dot3(P, T)
     v = inv_det * dot3(Q, step)
-    ok = (det != 0) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (v <= 1.0)
-    ok = ok & (u + v <= 1.0)
+    lo = -edge_tol
+    hi = 1.0 + edge_tol
+    ok = (det != 0) & (u >= lo) & (u <= hi) & (v >= lo) & (v <= hi)
+    ok = ok & (u + v <= hi)
     return torch.where(ok, t, torch.full_like(t, float("nan")))
+
+
+def reflect(r0, step, d, normal, epsilon):
+    """Specular reflection of a step at a surface hit, (n, 3) layout.
+
+    Orients ``normal`` against the incoming direction, mirrors the
+    direction, and offsets the new origin ``epsilon`` off the surface along
+    the oriented normal. Returns ``(r0, step)``; callers select which spins
+    actually reflected.
+    """
+    d = d[..., None]
+    intersection = r0 + d * step
+    v = d * step
+    dp = dot3(v, normal)[..., None]
+    normal = torch.where(dp > 0, -normal, normal)
+    dp = -torch.abs(dp)  # dot with the oriented normal
+    new_step = normalize(v - 2.0 * dp * normal)
+    new_r0 = intersection + epsilon * normal
+    return new_r0, new_step
+
+
+def crossing(r0, step, d, normal, epsilon):
+    """Permeable crossing of a surface: move epsilon past the hit point.
+
+    Orients ``normal`` along the incoming direction and places the walker
+    ``epsilon`` past the intersection; the direction is unchanged.
+    """
+    d = d[..., None]
+    intersection = r0 + d * step
+    dp = dot3(d * step, normal)[..., None]
+    normal = torch.where(dp < 0, -normal, normal)
+    return intersection + epsilon * normal
+
+
+# ---------------------------------------------------------------------------
+# Row-layout variants: vectors as (3, n) tensors, the analytic engine's
+# layout.
+# ---------------------------------------------------------------------------
+
+
+def dot_rows(a, b):
+    """Dot product of (3, n) vector bundles -> (n,)."""
+    return torch.sum(a * b, dim=0)
+
+
+def normalize_rows(v):
+    """Scale (3, n) columns to unit length."""
+    return v / torch.sqrt(torch.sum(v * v, dim=0, keepdim=True))
+
+
+def reflect_rows(r0, step, d, normal, epsilon):
+    """Row-layout specular reflection (see :func:`reflect`).
+
+    All vector arguments are (3, n); ``d`` is (n,). Returns updated
+    ``(r0, step)`` as (3, n).
+    """
+    v = d[None, :] * step
+    intersection = r0 + v
+    dp = torch.sum(v * normal, dim=0, keepdim=True)
+    normal = torch.where(dp > 0, -normal, normal)
+    dp = -torch.abs(dp)
+    new_step = normalize_rows(v - 2.0 * dp * normal)
+    new_r0 = intersection + epsilon * normal
+    return new_r0, new_step
+
+
+def crossing_rows(r0, step, d, normal, epsilon):
+    """Row-layout permeable crossing (see :func:`crossing`)."""
+    v = d[None, :] * step
+    intersection = r0 + v
+    dp = torch.sum(v * normal, dim=0, keepdim=True)
+    normal = torch.where(dp < 0, -normal, normal)
+    return intersection + epsilon * normal

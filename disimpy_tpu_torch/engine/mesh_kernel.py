@@ -1,0 +1,151 @@
+"""Nearest forward triangle hit per spin: CUDA kernel and plain version.
+
+``nearest_hit`` answers, for every spin, the classic mesh engine's
+collision query on a halo-layout :class:`MeshSpec` (``spans == (1, 1,
+1)``): the closest strictly-forward Moller-Trumbore hit along ``r0 + s *
+direction``, ``s`` in ``(0, rem]`` being the caller's concern, among the
+records of the spin's halo cell. A CUDA tensor goes to the hand-written
+kernel ``csrc/mesh_hit.cu`` (one thread per spin, float32 or float64); a
+CPU tensor goes to :func:`nearest_hit_reference`, the same arithmetic as
+plain torch. There is no fallback from one to the other.
+
+The kernel is the counterpart of the JAX package's Pallas kernel
+``engine/pallas_mesh.py::_kernel``; both read the same table, the Pallas
+kernel after a transpose that the GPU does not need.
+"""
+
+import ctypes
+
+import torch
+
+from . import mesh_accel
+
+# Barycentric leak-proofing tolerance per engine dtype (the JAX package's
+# stepping._make_mesh_query).
+EDGE_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+# Floating-point operations of one record's Moller-Trumbore test (edges
+# and offset 9, two cross products 18, det 5, reciprocal 1, t/u/v 18,
+# u + v 1).
+FLOPS_PER_RECORD = 52
+
+# Kernel launches since import (or since a caller reset it): counts only
+# where the CUDA kernel is launched, so a run can show that its main path
+# went through the kernel.
+launches = 0
+
+_SYMBOLS = {torch.float32: "mesh_hit_launch_f32",
+            torch.float64: "mesh_hit_launch_f64"}
+
+
+def _check_halo(spec):
+    if tuple(spec.spans) != (1, 1, 1):
+        raise ValueError(
+            "mesh_kernel.nearest_hit takes the halo layout (spans (1, 1, 1)); "
+            f"this spec has spans {spec.spans}"
+        )
+
+
+def halo_cells(spec, r0, direction, rem):
+    """Each spin's halo cell and its position shifted into that cell's
+    periodic image.
+
+    The cell holds the minimum corner of the segment's bounding box,
+    ``floor(min(r0, r0 + direction * rem) / sv_width)``, wrapped into the
+    voxel; ``r0`` moves by the same whole-voxel shift. Returns (cell (n,)
+    int64, shifted r0 (n, 3)).
+    """
+    n_sv = torch.tensor(spec.n_sv, dtype=torch.int32, device=r0.device)
+    seg_end = r0 + direction * rem[:, None]
+    lo = torch.minimum(r0, seg_end)
+    base = torch.floor(lo / spec.sv_width).to(torch.int32)
+    shift_n = torch.div(base, n_sv, rounding_mode="floor")
+    wrapped = base - shift_n * n_sv
+    cell = (wrapped[:, 0] * n_sv[1] + wrapped[:, 1]) * n_sv[2] + wrapped[:, 2]
+    return cell.long(), r0 - shift_n.to(r0.dtype) * spec.voxel_size
+
+
+def nearest_hit(spec, r0, direction, rem):
+    """Closest forward hit per spin in its halo cell.
+
+    ``r0``, ``direction`` (n, 3) and ``rem`` (n,) are contiguous tensors
+    in the spec's dtype on the spec's device. Returns ``(min_d (n,),
+    normal (n, 3))``: ``inf`` and a zero normal where nothing is hit;
+    equal distances resolve to the lowest record of the row; the normal's
+    sign is unoriented.
+    """
+    _check_halo(spec)
+    kind = r0.device.type
+    if kind == "cpu":
+        return nearest_hit_reference(spec, r0, direction, rem)
+    if kind != "cuda":
+        raise ValueError(f"nearest_hit runs on cpu or cuda, not {kind}")
+    return _nearest_hit_cuda(spec, r0, direction, rem)
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _nearest_hit_cuda(spec, r0, direction, rem):
+    global launches
+    from ._build import load
+
+    n = r0.shape[0]
+    device = r0.device
+    dtype = spec.tri.dtype
+    if dtype not in _SYMBOLS:
+        raise ValueError(f"the mesh_hit kernel takes float32 or float64, "
+                         f"not {dtype}")
+    n_cells, n_chunks, chunk, _ = spec.tri.shape
+    for name, t, dt, shape in (
+        ("r0", r0, dtype, (n, 3)),
+        ("direction", direction, dtype, (n, 3)),
+        ("rem", rem, dtype, (n,)),
+        ("spec.tri", spec.tri, dtype, (n_cells, n_chunks, chunk, 12)),
+        ("spec.cell_counts", spec.cell_counts, torch.int32, (n_cells,)),
+        ("spec.sv_width", spec.sv_width, dtype, (3,)),
+        ("spec.voxel_size", spec.voxel_size, dtype, (3,)),
+    ):
+        _check(name, t, dt, shape, device)
+    min_d = torch.empty((n,), dtype=dtype, device=device)
+    normal = torch.empty((n, 3), dtype=dtype, device=device)
+    if n == 0:
+        return min_d, normal
+    real = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
+    fn = getattr(load("mesh_hit").lib, _SYMBOLS[dtype])
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [real]
+                   + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(
+            r0.data_ptr(), direction.data_ptr(), rem.data_ptr(),
+            spec.tri.data_ptr(), spec.cell_counts.data_ptr(),
+            spec.sv_width.data_ptr(), spec.voxel_size.data_ptr(),
+            n, *spec.n_sv, n_chunks * chunk, EDGE_TOL[dtype],
+            min_d.data_ptr(), normal.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"mesh_hit kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return min_d, normal
+
+
+def nearest_hit_reference(spec, r0, direction, rem):
+    """Plain-torch version of :func:`nearest_hit` (same arguments and
+    returns): ``mesh_accel.nearest_hit`` on the halo layout with the
+    dtype's edge tolerance. One Moller-Trumbore test per record of the
+    spin's row (padding records have det = 0 and never hit); the first
+    minimum along the row wins.
+    """
+    _check_halo(spec)
+    return mesh_accel.nearest_hit(spec, r0, direction, rem,
+                                  edge_tol=EDGE_TOL[spec.tri.dtype])

@@ -1,24 +1,27 @@
 """Diffusion-weighted MR simulation driver (PyTorch).
 
 ``simulation(...)`` takes the JAX package's signature plus ``device``.
-This package so far runs:
+It runs, in float32 or float64, with or without trajectory output:
 
 - free diffusion (``substrates.free()``);
-- triangle-mesh substrates in float32 without trajectory output, through
-  the fused epoch engine (``engine/fused.py`` and the CUDA kernel
-  ``csrc/fused_epoch.cu``), impermeable or permeable, seeded "uniform"
-  (on the device), "intra"/"extra" (host ray-parity sampling) or from an
-  explicit array.
+- spheres, infinite cylinders and ellipsoids, through the classic engine
+  (``engine/core.run_window`` and ``engine/stepping.py``), in the
+  substrate's own frame;
+- triangle meshes, seeded "uniform" (on the device), "intra"/"extra"
+  (host ray-parity sampling) or from an explicit array. Float32 runs
+  without trajectory output go through the fused epoch engine
+  (``engine/fused.py``, CUDA kernel ``csrc/fused_epoch.cu``); the rest,
+  and runs whose geometry or surface offset the fused table cannot serve,
+  go through the classic per-bounce engine, whose collision query is the
+  CUDA kernel ``csrc/mesh_hit.cu`` on the halo layout.
 
-Everything else — the analytic substrates, the classic per-bounce mesh
-engine (float64, trajectories, runs the fused table cannot serve), several
-devices, relaxation and exchange statistics — raises
-``NotImplementedError`` naming the later part of the port that brings it.
+Several devices, relaxation and exchange statistics raise
+``NotImplementedError``: they come with a later part of the port.
 
 All geometry is rescaled to step-length units. Randomness is the
 counter-based threefry of ``engine/krng.py``, keyed per (seed, step, spin
 id); host-side seeding uses the same numpy RNG calls as the JAX package, so
-"intra"/"extra" seeds equal its seeds bit for bit.
+analytic and "intra"/"extra" seeds equal its seeds bit for bit.
 """
 
 import math
@@ -27,21 +30,16 @@ import warnings
 import numpy as np
 import torch
 
-from . import substrates
+from . import substrates, utils
 from .engine import core as engine_core
 from .engine import krng
+from .engine.specs import CylinderSpec, EllipsoidSpec, FreeSpec, SphereSpec
 from .gradients import GAMMA
 
 __all__ = ["simulation", "add_noise_to_data"]
 
 # Mixed into the simulation seed for device-side "uniform" mesh seeding.
 UNIFORM_SALT = 0x756E6966
-
-_CLASSIC = (
-    "the classic per-bounce mesh engine (analytic substrates, float64, "
-    "trajectories and meshes the fused table cannot serve) is not ported "
-    "yet: it comes with slice 2 of the port"
-)
 
 
 # ---------------------------------------------------------------------------
@@ -73,6 +71,48 @@ def _rejection_fill(n, proposal, accept):
         accepted.append(keep)
         got += len(keep)
     return np.concatenate(accepted, axis=0)[:n]
+
+
+def _fill_ellipsoid(n, semiaxes):
+    """Sample n points uniformly inside an axis-aligned ellipsoid."""
+    semiaxes = np.asarray(semiaxes, dtype=float)
+    return _rejection_fill(
+        n,
+        lambda k: (np.random.random((k, 3)) - 0.5) * 2 * semiaxes,
+        lambda p: np.sum((p / semiaxes) ** 2, axis=1) < 1,
+    )
+
+
+def _fill_sphere(n, radius):
+    """Sample n points uniformly inside a sphere of the given radius.
+
+    The equal-semiaxes ellipsoid case, so that sphere and ellipsoid
+    simulations with the same seed draw identical initial positions.
+    """
+    return _fill_ellipsoid(n, np.array([radius, radius, radius]))
+
+
+def _fill_circle(n, radius):
+    """Sample n points uniformly inside a circle of the given radius."""
+    return _rejection_fill(
+        n,
+        lambda k: (np.random.random((k, 2)) - 0.5) * 2 * radius,
+        lambda p: np.linalg.norm(p, axis=1) < radius,
+    )
+
+
+def _initial_positions_cylinder(n_walkers, radius, R):
+    """Uniform points on the x=0 disc of a cylinder, rotated to the lab
+    frame by R (cylinder frame -> lab frame)."""
+    positions = np.zeros((n_walkers, 3))
+    positions[:, 1:3] = _fill_circle(n_walkers, radius)
+    return positions @ np.asarray(R).T
+
+
+def _initial_positions_ellipsoid(n_walkers, semiaxes, R):
+    """Uniform points inside an ellipsoid, rotated to the lab frame by R
+    (ellipsoid frame -> lab frame)."""
+    return _fill_ellipsoid(n_walkers, semiaxes) @ np.asarray(R).T
 
 
 def _count_crossings_x(points, triangles, candidates):
@@ -242,39 +282,41 @@ def add_noise_to_data(data, sigma, seed=None):
     )
 
 
+def _write_traj(traj, mode, positions):
+    """Append one line with all walker positions to the trajectories file."""
+    with open(traj, mode) as f:
+        np.savetxt(f, np.asarray(positions, dtype=float).reshape(1, -1))
+
+
 # ---------------------------------------------------------------------------
 # Substrate preparation: host substrate -> engine spec + initial positions.
 # ---------------------------------------------------------------------------
 
 
-def _uniform_positions(n, voxel_scaled, seed, device):
-    """(3, n) float32 positions uniform in the voxel, drawn on ``device``
-    from a threefry stream keyed by the simulation seed."""
+def _uniform_positions(n, voxel_scaled, seed, device, dtype=torch.float32):
+    """(3, n) positions uniform in the voxel, drawn on ``device`` from a
+    threefry stream keyed by the simulation seed."""
     ids = torch.arange(n, dtype=torch.int32, device=device)
     key = (seed & 0x7FFFFFFF) ^ UNIFORM_SALT
     w0, w1 = krng.step_words(key, 0, ids, 0)
     w2, _ = krng.step_words(key, 0, ids, 1)
-    u = torch.stack([krng.uniform01(w) for w in (w0, w1, w2)])
-    vox = torch.as_tensor(voxel_scaled, dtype=torch.float32, device=device)
+    u = torch.stack([krng.uniform01(w, dtype) for w in (w0, w1, w2)])
+    vox = torch.as_tensor(voxel_scaled, dtype=dtype, device=device)
     return u * vox[:, None]
 
 
-def _prepare_mesh(substrate, n_walkers, seed, scale, quiet, device):
-    """Fused spec and initial positions (3, n) for a mesh substrate."""
-    from .engine import fused
-
+def _mesh_positions(substrate, n_walkers, seed, scale, quiet, dtype, device):
+    """(3, n) initial positions for a mesh substrate (step-length units)."""
     if isinstance(substrate.init_pos, np.ndarray):
         if n_walkers != substrate.init_pos.shape[0]:
             raise ValueError(
                 "n_walkers must be equal to the number of initial positions"
             )
-        positions = torch.as_tensor(
-            np.asarray(substrate.init_pos, dtype=float).T * scale,
-            dtype=torch.float32,
-        ).to(device)
+        pts = np.asarray(substrate.init_pos, dtype=float)
     elif substrate.init_pos == "uniform":
-        positions = _uniform_positions(
-            n_walkers, np.asarray(substrate.voxel_size) * scale, seed, device
+        return _uniform_positions(
+            n_walkers, np.asarray(substrate.voxel_size) * scale, seed, device,
+            dtype,
         )
     else:
         if not quiet:
@@ -284,26 +326,111 @@ def _prepare_mesh(substrate, n_walkers, seed, scale, quiet, device):
         )
         if not quiet:
             print("Finished calculating initial positions")
-        positions = torch.as_tensor(
-            pts.T * scale, dtype=torch.float32
-        ).to(device)
+    return torch.as_tensor(pts.T * scale, dtype=dtype).to(device)
+
+
+def _fused_spec(substrate, n_walkers, scale, device):
+    """The substrate's fused spec (cached on it), or None when no fused
+    configuration fits the geometry (e.g. a step length comparable to the
+    voxel)."""
+    from .engine import fused
 
     cache_key = (
         "fused-torch", float(scale), fused.quantize_n_hint(n_walkers),
         str(device),
     )
-    spec = substrate._accel_cache.get(cache_key)
-    if spec is None:
+    if cache_key not in substrate._accel_cache:
         try:
             spec = fused.pack_fused(
                 substrate, scale, n_hint=float(n_walkers), device=device
             )
-        except ValueError as e:
-            # Geometry too dense for any fused configuration (e.g. step
-            # length comparable to the voxel).
-            raise NotImplementedError(f"{e}; {_CLASSIC}") from e
+        except ValueError:
+            spec = None
         substrate._accel_cache[cache_key] = spec
-    return spec, positions
+    return substrate._accel_cache[cache_key]
+
+
+def _classic_mesh_spec(substrate, scale, dtype, device):
+    """The substrate's classic mesh spec (cached on it)."""
+    from .engine import mesh_accel
+
+    cache_key = ("classic-torch", float(scale), str(dtype), str(device))
+    spec = substrate._accel_cache.get(cache_key)
+    if spec is None:
+        spec = mesh_accel.pack_mesh(substrate, scale, dtype, device=device)
+        substrate._accel_cache[cache_key] = spec
+    return spec
+
+
+def _prepare_substrate(substrate, n_walkers, seed, scale, dtype, quiet,
+                       mesh_engine, device):
+    """Build the engine spec, the initial positions (3, n) on ``device``
+    (substrate frame, step-length units), the frame->lab rotation (or
+    None), a geometry-extent estimate and the mesh engine.
+
+    ``mesh_engine`` asks for "fused" or "classic" on mesh substrates; a
+    geometry the fused pack cannot serve goes to "classic".
+    """
+
+    def scalar(x):
+        return torch.tensor(float(x), dtype=dtype, device=device)
+
+    def host(p):
+        return torch.as_tensor(p.T * scale, dtype=dtype).to(device)
+
+    if substrate.type == "free":
+        positions = torch.zeros((3, n_walkers), dtype=dtype, device=device)
+        return FreeSpec(), positions, None, 1.0, "classic"
+
+    if substrate.type == "sphere":
+        r = substrate.radius
+        spec = SphereSpec(radius=scalar(r * scale),
+                          perm_prob=scalar(substrate.perm_prob))
+        return (spec, host(_fill_sphere(n_walkers, r)), None, r * scale,
+                "classic")
+
+    if substrate.type == "cylinder":
+        r = substrate.radius
+        # A cylinder is symmetric under orientation sign flip; canonicalize
+        # so that antiparallel orientations produce identical simulations.
+        orientation = np.asarray(substrate.orientation, dtype=float)
+        if orientation[np.argmax(np.abs(orientation))] < 0:
+            orientation = -orientation
+        # The engine runs in the cylinder frame (axis = +x).
+        R = utils.vec2vec_rotmat(orientation, np.array([1.0, 0.0, 0.0]))
+        frame_to_lab = np.linalg.inv(R)
+        positions = np.zeros((n_walkers, 3))
+        positions[:, 1:3] = _fill_circle(n_walkers, r)
+        spec = CylinderSpec(radius=scalar(r * scale),
+                            perm_prob=scalar(substrate.perm_prob))
+        return spec, host(positions), frame_to_lab, r * scale, "classic"
+
+    if substrate.type == "ellipsoid":
+        semiaxes = np.asarray(substrate.semiaxes, dtype=float)
+        frame_to_lab = np.asarray(substrate.R, dtype=float)
+        spec = EllipsoidSpec(
+            semiaxes=torch.as_tensor(semiaxes * scale, dtype=dtype).to(device),
+            perm_prob=scalar(substrate.perm_prob),
+        )
+        return (
+            spec, host(_fill_ellipsoid(n_walkers, semiaxes)), frame_to_lab,
+            float(np.max(semiaxes)) * scale, "classic",
+        )
+
+    if substrate.type == "mesh":
+        positions = _mesh_positions(
+            substrate, n_walkers, seed, scale, quiet, dtype, device
+        )
+        spec = None
+        if mesh_engine == "fused":
+            spec = _fused_spec(substrate, n_walkers, scale, device)
+        if spec is None:
+            mesh_engine = "classic"
+            spec = _classic_mesh_spec(substrate, scale, dtype, device)
+        extent = float(np.max(substrate.voxel_size)) * scale
+        return spec, positions, None, extent, mesh_engine
+
+    raise ValueError("Incorrect value (%s) for substrate" % substrate)
 
 
 def _effective_epsilon(epsilon, scale, extent, n_t, dtype, bounded):
@@ -311,12 +438,14 @@ def _effective_epsilon(epsilon, scale, extent, n_t, dtype, bounded):
 
     The user value (metres, reference default 1e-13) is honored, but floored
     at ~64 ulps of the largest coordinate magnitude the simulation will
-    visit, so the offset survives rounding in float32: an offset below one
-    ulp would leave walkers exactly on the surface and re-collide forever.
+    visit, so the offset survives rounding: an offset below one ulp would
+    leave walkers exactly on the surface and re-collide forever. The floor
+    is a no-op in float64.
 
-    For substrates whose coordinates stay within ``extent`` (non-periodic
-    mesh) the floor uses the extent only; the ``sqrt(n_t)`` diffusion-growth
-    term applies only when coordinates are unbounded (periodic mesh).
+    For substrates whose coordinates stay within ``extent`` (sphere,
+    ellipsoid, non-periodic mesh) the floor uses the extent only; the
+    ``sqrt(n_t)`` diffusion-growth term applies only when coordinates are
+    unbounded (cylinder axis, periodic mesh).
     """
     magnitude = max(float(extent), 1.0)
     if not bounded:
@@ -326,7 +455,7 @@ def _effective_epsilon(epsilon, scale, extent, n_t, dtype, bounded):
 
 
 def _engine_dtype(dtype):
-    """Resolve ``dtype``: float32 runs, float64 is not ported yet."""
+    """Resolve ``dtype`` to torch.float32 or torch.float64."""
     if isinstance(dtype, torch.dtype):
         name = str(dtype).removeprefix("torch.")
     else:
@@ -334,11 +463,9 @@ def _engine_dtype(dtype):
             name = np.dtype(dtype).name
         except TypeError:
             raise ValueError("Incorrect value (%s) for dtype" % (dtype,))
-    if name == "float64":
-        raise NotImplementedError(f"dtype='float64': {_CLASSIC}")
-    if name != "float32":
+    if name not in ("float32", "float64"):
         raise ValueError("Incorrect value (%s) for dtype" % (dtype,))
-    return torch.float32
+    return getattr(torch, name)
 
 
 # ---------------------------------------------------------------------------
@@ -380,12 +507,13 @@ def simulation(
     dt : float
         Duration of a time step (s).
     substrate : disimpy_tpu_torch.substrates._Substrate
-        Substrate object describing the microstructure: ``free()`` or a
-        mesh.
+        Substrate object describing the microstructure.
     seed : int, optional
         Seed for random number generation.
     traj : str, optional
-        Trajectory output; not ported yet (raises NotImplementedError).
+        Path of a file in which to save walker trajectories (one line per
+        time point: ``walker_1_x walker_1_y walker_1_z walker_2_x ...``).
+        The file can become very large.
     final_pos : bool, optional
         If True, return ``(signals, final_positions)``.
     all_signals : bool, optional
@@ -399,9 +527,9 @@ def simulation(
         are flagged, warned about, and excluded from the signal.
     epsilon : float, optional
         Distance (m) by which a walker is moved off a surface after a
-        collision. Floored internally at float32 resolution.
-    dtype : str, optional
-        Engine precision: "float32" ("float64" is not ported yet).
+        collision. Floored internally at the engine dtype's resolution.
+    dtype : str, numpy dtype or torch dtype, optional
+        Engine precision: "float32" (default) or "float64".
     devices, relaxation, exchange_stats : optional
         Not ported yet: anything but the defaults raises
         NotImplementedError.
@@ -455,10 +583,6 @@ def simulation(
         raise NotImplementedError(
             f"relaxation and exchange_stats come with {later}"
         )
-    if substrate.type not in ("free", "mesh"):
-        raise NotImplementedError(f"{substrate.type} substrate: {_CLASSIC}")
-    if traj:
-        raise NotImplementedError(f"traj output: {_CLASSIC}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -469,6 +593,11 @@ def simulation(
 
     if not quiet:
         print("Starting simulation")
+        if traj:
+            print(
+                "The trajectories file will be up to %s GB"
+                % (gradient.shape[1] * n_walkers * 3 * 25 / 1e9)
+            )
     n_meas, n_t, _ = gradient.shape
     step_l = np.sqrt(6 * diffusivity * dt)
     scale = 1.0 / step_l
@@ -478,46 +607,79 @@ def simulation(
         print("Step length = %s m" % step_l)
         print("Step duration = %s s" % dt)
 
-    # Host RNG state as the JAX package sets it.
+    # Host RNG state as the JAX package sets it (analytic samplers).
     np.random.seed(seed)
 
+    from .engine import config as engine_config
+
+    mesh_engine = "classic"
+    if substrate.type == "mesh":
+        mesh_engine = engine_config.mesh_engine(dtype, needs_traj=bool(traj))
+    spec, positions, frame_to_lab, extent, mesh_engine = _prepare_substrate(
+        substrate, n_walkers, seed, scale, dtype, quiet, mesh_engine, device
+    )
+    kind = substrate.type
+
     # Phase coefficients: phi += GAMMA * dt * g . r with r in step-length
-    # units -> g_eff[t, m, :] = GAMMA * dt * step_l * g[m, t, :].
+    # units -> g_eff[t, m, :] = GAMMA * dt * step_l * g[m, t, :], rotated
+    # into the substrate frame when the engine runs in one.
     g_eff = (GAMMA * dt * step_l) * np.transpose(gradient, (1, 0, 2))
+    if frame_to_lab is not None:
+        # g . r_lab = g . (A r_frame) = (A^T g) . r_frame
+        g_eff = g_eff @ frame_to_lab
     g_eff_dev = torch.as_tensor(g_eff, dtype=dtype).to(device)
+
+    bounded = kind in ("sphere", "ellipsoid") or (
+        kind == "mesh" and not substrate.periodic
+    )
+    eps_eff = _effective_epsilon(epsilon, scale, extent, n_t, dtype, bounded)
+
+    # The fused table's dilation margin provisions for a bounded per-bounce
+    # epsilon drift (engine/fused.py EPS_BOUNCES); a larger effective
+    # epsilon (very long periodic runs, large user epsilon) goes to the
+    # classic engine, whose per-bounce query has no drift budget.
+    if mesh_engine == "fused" and eps_eff > spec.eps_budget:
+        mesh_engine = "classic"
+        spec = _classic_mesh_spec(substrate, scale, dtype, device)
+
     phases = torch.zeros((n_meas, n_walkers), dtype=dtype, device=device)
     iter_exc = torch.zeros(n_walkers, dtype=torch.bool, device=device)
     seed32 = seed & 0x7FFFFFFF
 
-    if substrate.type == "free":
-        positions = torch.zeros((3, n_walkers), dtype=dtype, device=device)
-        positions, phases = engine_core.run_window_free(
-            positions, phases, g_eff_dev, range(n_t), seed32
-        )
-    else:
-        from .engine import config as engine_config
+    def to_lab(pos_scaled):
+        """(3, n) engine positions -> (n, 3) lab-frame positions (metres)."""
+        pos = pos_scaled.cpu().numpy().astype(float).T * step_l
+        if frame_to_lab is not None:
+            pos = pos @ frame_to_lab.T
+        return pos
+
+    if mesh_engine == "fused":
         from .engine import fused
 
-        if engine_config.mesh_engine(dtype, needs_traj=False) != "fused":
-            raise NotImplementedError(_CLASSIC)
-        spec, positions = _prepare_mesh(
-            substrate, n_walkers, seed, scale, quiet, device
-        )
-        extent = float(np.max(substrate.voxel_size)) * scale
-        eps_eff = _effective_epsilon(
-            epsilon, scale, extent, n_t, dtype, not substrate.periodic
-        )
-        # The fused table's dilation margin provisions for a bounded
-        # per-bounce epsilon drift (engine/fused.py EPS_BOUNCES).
-        if eps_eff > spec.eps_budget:
-            raise NotImplementedError(
-                f"effective epsilon {eps_eff:.3g} exceeds the fused table's "
-                f"budget {spec.eps_budget:.3g}; {_CLASSIC}"
-            )
         positions, phases, iter_exc = fused.run_window_fused(
             spec, positions, phases, iter_exc, g_eff_dev, range(n_t),
             seed32, eps_eff, max_iter,
         )
+    else:
+        if traj:
+            _write_traj(traj, "w", to_lab(positions))
+            # Windowed execution keeps the collected-trajectory buffer
+            # bounded.
+            window = max(1, min(n_t, int(3e7) // max(3 * n_walkers, 1)))
+        else:
+            window = n_t
+        for t0 in range(0, n_t, window):
+            t1 = min(t0 + window, n_t)
+            (positions, phases, iter_exc), collected = engine_core.run_window(
+                kind, spec, positions, phases, iter_exc, g_eff_dev[t0:t1],
+                range(t0, t1), seed32, eps_eff, max_iter,
+                collect_positions=bool(traj),
+            )
+            if traj:
+                for step_positions in collected:
+                    _write_traj(traj, "a", to_lab(step_positions))
+            if not quiet and n_t > window:
+                print(f"\r{np.round(t1 / n_t * 100, 1)}%", end="", flush=True)
 
     # Signal reduction on the device; the exceeded-walker indices are
     # fetched only when a walker overflowed.
@@ -535,6 +697,5 @@ def simulation(
     if not quiet:
         print("\rSimulation finished")
     if final_pos:
-        pos = positions.cpu().numpy().astype(float).T * step_l
-        return signals, pos
+        return signals, to_lab(positions)
     return signals

@@ -27,7 +27,7 @@ from disimpy_tpu import substrates as jsub
 from disimpy_tpu.engine import config as jconfig
 from disimpy_tpu.engine import fused as jfused
 from disimpy_tpu_torch import gradients, simulations, substrates
-from disimpy_tpu_torch.engine import config, fused
+from disimpy_tpu_torch.engine import fused
 
 D = 2e-9
 N_SPINS, N_STEPS, SEED = 512, 10, 3
@@ -237,7 +237,8 @@ def test_simulation_validation():
             simulations.simulation(**{**ok, **bad})
 
 
-def test_unported_paths_raise(oracles_dir, tmp_path):
+def test_unported_paths_raise(oracles_dir):
+    # What slice 3 brings; everything else runs (tests/test_torch_classic.py).
     bvals = np.array([1e9])
     gradient, dt = gradients.pgse(10e-3, 20e-3, 20, bvals, np.eye(3)[:1])
     vertices, faces = _cylinder_mesh(oracles_dir)
@@ -246,25 +247,13 @@ def test_unported_paths_raise(oracles_dir, tmp_path):
     ok = dict(n_walkers=10, diffusivity=D, gradient=gradient, dt=dt,
               substrate=substrates.free(), quiet=True, device="cpu")
     for bad in (
-        dict(devices=2), dict(dtype="float64"), dict(dtype=np.float64),
-        dict(traj=str(tmp_path / "t.txt")), dict(relaxation=0.05),
-        dict(exchange_stats=True),
-        dict(substrate=substrates.sphere(5e-6)),
-        dict(substrate=substrates.cylinder(5e-6, np.array([1.0, 0, 0]))),
-        dict(substrate=substrates.ellipsoid(np.array([5e-6, 4e-6, 3e-6]))),
-        # Effective epsilon above the fused table's drift budget.
-        dict(substrate=mesh, epsilon=1e-7, dt=1e-4),
-        # Steps as long as the voxel: no fused configuration fits.
-        dict(substrate=mesh, dt=0.2),
+        dict(devices=2), dict(relaxation=0.05), dict(exchange_stats=True),
+        dict(substrate=mesh, devices=2),
+        dict(substrate=substrates.sphere(5e-6), relaxation=(0.05, 0.08)),
+        dict(substrate=mesh, exchange_stats=True),
     ):
         with pytest.raises(NotImplementedError):
             simulations.simulation(**{**ok, **bad})
-    try:
-        config.use_fused = False
-        with pytest.raises(NotImplementedError):
-            simulations.simulation(**{**ok, "substrate": mesh, "dt": 1e-4})
-    finally:
-        config.use_fused = None
 
 
 def test_cuda_device_needs_a_gpu():
