@@ -15,7 +15,11 @@ Phases, one line each (any failure raises, so the exit code is non-zero):
    pack (J = 4, perm 0 and 0.5; 16,384 sorted spins with equal iter_exc
    and transit counts, then the main path's 524,288): at most 0.5% of the
    spins diverge (positions more than 1e-4 step lengths apart), both
-   times, and the kernel's bound from the units the plain version folds;
+   times, the kernel's bound from the units the plain version folds, and
+   the fold-lane efficiency of one thread, four and eight lanes per spin
+   from the plain version's per-pass prefix counts; then a crafted unit
+   with equal t at two sublanes and across two units, where kernel and
+   plain version must give the same positions bit for bit;
 4. free diffusion through ``simulation()`` against exp(-bD) (<= 0.01);
 5. the closed cylinder mesh through ``simulation()`` against the vendored
    MISST signal (<= 0.015), with the leak checks of the JAX package's test;
@@ -31,7 +35,10 @@ Phases, one line each (any failure raises, so the exit code is non-zero):
    rem = 1 and rem uniform in (0, 1], in float32 (at most 1e-5 of the hit
    masks differ; elsewhere |d| within 1e-5 step lengths and |normal dot|
    >= 1 - 1e-5) and float64 (equal masks, |d| within 1e-12); both times
-   and the bound;
+   and the bound; the same for the compacted batch the engine's second
+   bounce pass sees (the full batch's hits reflected, at most 65,536);
+   and the two tie cases of ``tests/test_torch_classic.py``, where the
+   kernel must return the plain version's record;
 8. the analytic oracles through ``simulation()``: sphere and cylinder
    against MISST at small delta 30 ms and 1 ms (1e5 spins x 1000 steps x
    100 b, <= 0.01), the equal-semiaxes ellipsoid against the sphere (3
@@ -227,6 +234,133 @@ def _cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps, out
 
 
+def fused_tie_case(device):
+    """A crafted two-cell epoch whose first fold meets equal t at two
+    sublanes and across two units.
+
+    Three axis-aligned triangles (normals x, y, z, each E1 x E2 of unit
+    length) pass through (1.5, 1.5, 1.5) in the cell-local frame; a spin
+    at (0.5, 0.5, 0.5) moving along (1, 1, 1) meets all three at t = 1
+    exactly, uses up its segment there and is offset eps off the winner.
+    Cell 0 holds x at (unit 0, g 0, r 5), y at (unit 0, g 3, r 2) and z at
+    (unit 1, g 0, r 2): y wins (lowest r, then the earlier unit). Cell 1
+    holds the same in units 2 and 3 but z at (unit 3, g 1, r 1): z wins
+    (a lower r in a later unit). Every value is a dyadic number, so the
+    result is exact.
+
+    Returns (spec, the ``fused_epoch`` arguments after the spec, the
+    expected (J, 3, n) positions).
+    """
+    from disimpy_tpu_torch.engine import fused
+
+    J, n_half, eps = 4, 8, 2.0 ** -8
+    tris = {
+        0: ((1.5, 1.25, 1.25), (1.5, 2.25, 1.25), (1.5, 1.25, 2.25)),
+        1: ((1.25, 1.5, 1.25), (1.25, 1.5, 2.25), (2.25, 1.5, 1.25)),
+        2: ((1.25, 1.25, 1.5), (2.25, 1.25, 1.5), (1.25, 2.25, 1.5)),
+    }
+
+    def features(axis):
+        A, B, C = (np.array(v) for v in tris[axis])
+        e1, e2 = B - A, C - A
+        nrm = np.cross(e1, e2)
+        return np.concatenate((nrm, [A @ nrm], e2, np.cross(e2, A), e1,
+                               np.cross(A, e1)))
+
+    table = np.zeros((4, 8, 128), np.float32)
+    # (unit, group, sublane, axis): cell 0 -> units 0, 1; cell 1 -> 2, 3.
+    for u, g, r, axis in ((0, 0, 5, 0), (0, 3, 2, 1), (1, 0, 2, 2),
+                          (2, 0, 5, 0), (2, 3, 2, 1), (3, 1, 1, 2)):
+        table[u, r, 16 * g:16 * g + 16] = features(axis)
+    two = sum(2 << (fused.BITS * k) for k in range(len(fused.FINE_LADDER)))
+    spec = fused.spec_from_numpy(
+        dict(table=table, cell_start=np.array([0, 2]),
+             cell_packed=np.full(2, two), cell_packed2=np.full(2, two),
+             voxel_size=np.array([8.0, 4.0, 4.0]),
+             sv_width=np.array([4.0, 4.0, 4.0]), perm_prob=np.array(0.0)),
+        dict(n_sv=(2, 1, 1), resort_every=J, seed_salt=0, eps_budget=1e-3),
+        device)
+    n = 2 * n_half
+    corner = np.repeat(np.array([[0.0, 0.0, 0.0], [4.0, 0.0, 0.0]]), n_half,
+                       axis=0).T
+    pos = corner + 0.5
+    want = corner + 1.5
+    want[1, :n_half] -= eps  # y wins in cell 0
+    want[2, n_half:] -= eps  # z wins in cell 1
+
+    def t(x, dtype=torch.float32):
+        return torch.tensor(np.ascontiguousarray(x), dtype=dtype,
+                            device=device)
+
+    i32 = torch.int32
+    args = (t(pos), t(np.ones((J, 3, n))), t(np.arange(n), i32),
+            t(np.repeat([0, 2], n_half), i32), t(np.full(n, two), i32),
+            t(np.full(n, two), i32), t(corner), 0, 1, 0, eps, 1000)
+    return spec, args, t(np.broadcast_to(want, (J, 3, n)))
+
+
+def _fused_tie_check():
+    """The crafted tie unit through the kernel and its plain version:
+    equal positions bit for bit, and the expected winners."""
+    from disimpy_tpu_torch.engine import fused_kernel
+
+    spec, args, want = fused_tie_case("cuda")
+    kp, _, _ = fused_kernel.fused_epoch(spec, *args)
+    pp, _, _ = fused_kernel.fused_epoch_reference(spec, *args)
+    if not (torch.equal(kp, pp) and torch.equal(kp, want)):
+        raise AssertionError(
+            f"fused_epoch tie unit: kernel {kp[0].T.tolist()}, plain "
+            f"{pp[0].T.tolist()}, expected {want[0].T.tolist()}")
+    say("fused_epoch tie unit: equal t at two sublanes and across two units "
+        "give the plain version's positions bit for bit (lowest r, then the "
+        "earlier unit)")
+
+
+def _fold_trace(run):
+    """Run ``run()``, a call of the plain epoch, and return its result and
+    the prefix counts it folded: one (step, pass, spin ids, cnt) per bounce
+    pass, read by wrapping the plain version's fold and the uniform draw
+    that follows it in the same pass."""
+    from disimpy_tpu_torch.engine import fused_kernel, krng
+
+    fold, draw = fused_kernel._fold_units, krng.bounce_uniform
+    trace, last = [], []
+
+    def fold_rec(table, start, cnt, *rest):
+        last.append(cnt)
+        return fold(table, start, cnt, *rest)
+
+    def draw_rec(seed, t, ids, it):
+        trace.append((t, it, ids, last.pop()))
+        return draw(seed, t, ids, it)
+
+    fused_kernel._fold_units, krng.bounce_uniform = fold_rec, draw_rec
+    try:
+        out = run()
+    finally:
+        fused_kernel._fold_units, krng.bounce_uniform = fold, draw
+    return out, trace
+
+
+def _lane_efficiency(trace, ids_s, spins_per_warp):
+    """Units folded over the units a warp of ``spins_per_warp`` sorted
+    spins issues: per pass a warp folds its spins' largest prefix count,
+    spins_per_warp times over (32 for one thread per spin, 4 for groups
+    of 8 lanes)."""
+    n = ids_s.shape[0]
+    pos_of = torch.empty_like(ids_s, dtype=torch.long)
+    pos_of[ids_s.long()] = torch.arange(n, device=ids_s.device)
+    n_warps = -(-n // spins_per_warp)
+    useful = issued = 0
+    for _, _, ids, cnt in trace:
+        warp = pos_of[ids.long()] // spins_per_warp
+        most = torch.zeros(n_warps, dtype=torch.long, device=ids_s.device)
+        most.scatter_reduce_(0, warp, cnt.long(), "amax")
+        useful += int(cnt.sum())
+        issued += int(most.sum())
+    return useful / (spins_per_warp * issued)
+
+
 def kernel_vs_plain(bench):
     """Phase 3: the kernel against its plain version on the bench pack,
     at 16,384 sorted spins and at the main path's 524,288.
@@ -234,7 +368,8 @@ def kernel_vs_plain(bench):
     At 16,384 spins iter_exc and the transit counts must be equal. At the
     full size a spin whose iter_exc or transit count differs counts as
     divergent, as does one whose positions differ by more than 1e-4 step
-    lengths; at both sizes at most 0.5% of the spins may diverge.
+    lengths; at both sizes at most 0.5% of the spins may diverge. Then
+    the crafted tie unit (:func:`fused_tie_case`).
     """
     from dataclasses import replace
 
@@ -256,9 +391,11 @@ def kernel_vs_plain(bench):
             ms, (kp, ke, kc) = _cuda_ms(
                 lambda: fused_kernel.fused_epoch(*args), 20)
             fused_kernel.units_folded = 0
-            plain_ms, (pp, pe, pc) = _cuda_ms(
-                lambda: fused_kernel.fused_epoch_reference(*args), 1)
+            (plain_ms, (pp, pe, pc)), trace = _fold_trace(lambda: _cuda_ms(
+                lambda: fused_kernel.fused_epoch_reference(*args), 1))
             units = fused_kernel.units_folded
+            lanes = {w: _lane_efficiency(trace, inputs[2], w)
+                     for w in (32, 8, 4)}
             # Bytes: the whole table read once, each spin's inputs (pos 3,
             # dirs 3J, corner 3 floats, four int32 words) and outputs
             # (positions 3J floats, J transit counts, one exc byte).
@@ -283,10 +420,14 @@ def kernel_vs_plain(bench):
                 f"step lengths; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms "
                 f"per epoch; {units} units folded = {flops:.4g} flops, "
                 f"{n_bytes / 1e6:.1f} MB -> bound {bound_ms:.4f} ms "
-                f"({bound_by})")
+                f"({bound_by}); fold-lane efficiency from the plain "
+                f"version's prefix counts: {lanes[32]:.4f} one thread per "
+                f"spin, {lanes[8]:.4f} four lanes per spin, {lanes[4]:.4f} "
+                "eight lanes per spin (the kernel's)")
             record[n, perm] = dict(max_abs_err=max_err, ms=ms,
                                    plain_ms=plain_ms, divergent=frac_div,
                                    bound_ms=bound_ms, bound_by=bound_by)
+    _fused_tie_check()
     return record
 
 
@@ -513,13 +654,113 @@ def bench_run(bench, smi):
     return runs
 
 
+def _hit_check(name, label, spec, r0, direction, rem):
+    """Time the nearest-hit kernel and its plain version on one batch and
+    hold the kernel to it: float32 at most 1e-5 of the hit masks differ,
+    |d| within 1e-5 step lengths and |normal dot| >= 1 - 1e-5 on the hits;
+    float64 equal masks, |d| within 1e-12. Returns (record, plain (d,
+    normal))."""
+    from disimpy_tpu_torch.engine import mesh_kernel
+
+    n = r0.shape[0]
+    args = (spec, r0.contiguous(), direction.contiguous(), rem.contiguous())
+    ms, (dk, nk) = _cuda_ms(lambda: mesh_kernel.nearest_hit(*args), 20)
+    plain_ms, (dp, np_) = _cuda_ms(
+        lambda: mesh_kernel.nearest_hit_reference(*args), 3)
+    # Hit masks (d <= rem: the hits the engine acts on) and forward masks
+    # (any finite d); distances and normals are held on the spins that hit
+    # in both, and the far forward hits are shown.
+    hk, hp = dk <= args[3], dp <= args[3]
+    fk, fp = torch.isfinite(dk), torch.isfinite(dp)
+    differ = (hk != hp) | (fk != fp)
+    both = hk & hp
+    err = float((dk - dp)[both].abs().max())
+    worst = float((nk * np_).sum(dim=1).abs()[both].min())
+    far = fk & fp & ~both
+    rel_far = (float(((dk - dp).abs() / dp)[far].max()) if bool(far.any())
+               else 0.0)
+    n_differ = int(differ.sum())
+    if name == "float32":
+        ok = n_differ <= 1e-5 * n and err <= 1e-5 and worst >= 1 - 1e-5
+    else:
+        ok = n_differ == 0 and err <= 1e-12 and worst >= 1 - 1e-12
+    # The work this input needs: one test per record of each spin's row;
+    # each touched row's records read once, the spins' inputs read once and
+    # outputs written once.
+    cell, _ = mesh_kernel.halo_cells(*args)
+    tested = int(spec.cell_counts[cell].sum())
+    touched = torch.unique(cell)
+    item = spec.tri.element_size()
+    n_bytes = (int(spec.cell_counts[touched].sum()) * 12 * item
+               + spec.cell_counts.numel() * 4 + n * 7 * item + n * 4 * item)
+    flops = tested * mesh_kernel.FLOPS_PER_RECORD
+    bound_ms, bound_by = bound(n_bytes, flops, name)
+    say(f"mesh_hit vs plain ({name}, {label}): {n} spins, "
+        f"{int(hk.sum())} hits within rem ({int(fk.sum())} forward hits); "
+        f"{n_differ} spins with other masks; max |d| diff {err:.3g} step "
+        f"lengths on the hits (on the farther forward hits: {rel_far:.3g} "
+        f"relative); min |normal dot| {worst:.9f} on the hits; "
+        f"{tested / n:.1f} records tested per spin (max "
+        f"{int(spec.cell_counts[cell].max())}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms; {flops:.4g} flops, {n_bytes / 1e6:.1f} MB -> "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    if not ok:
+        raise AssertionError(f"mesh_hit ({name}, {label}) disagrees with its "
+                             "plain version")
+    record = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                  bound_ms=bound_ms, bound_by=bound_by)
+    return record, (dp, np_)
+
+
+def _hit_tie_cases():
+    """The two tie cases of tests/test_torch_classic.py through the kernel:
+    the tent (two triangles sharing the edge that is hit) must return the
+    plain version's record, one triangle's normal; the same triangle
+    stored twice must return the first record."""
+    from disimpy_tpu_torch.engine import mesh_kernel, specs
+
+    o = np.array([10.0, 10.0, 10.0] * 3)
+    t1 = np.array([0, 0, 0, 0, 1, 0, 1, 0, -0.75]) + o
+    n1 = np.array([-0.6, 0.0, -0.8])
+    t2 = np.array([0, 0, 0, 0, 1, 0, -1, 0, -4.0 / 3.0]) + o
+    n2 = np.array([-0.8, 0.0, 0.6])
+    for dtype in (torch.float32, torch.float64):
+        kw = dict(dtype=dtype, device="cuda")
+        for label, records in (("tent", [np.r_[t1, n1], np.r_[t2, n2]]),
+                               ("duplicate", [np.r_[t1, n1], np.r_[t1, -n2]])):
+            spec = specs.MeshSpec(
+                tri=torch.tensor(np.array(records), **kw)[None, None],
+                cell_counts=torch.tensor([2], dtype=torch.int32,
+                                         device="cuda"),
+                voxel_size=torch.full((3,), 100.0, **kw),
+                sv_width=torch.full((3,), 100.0, **kw),
+                perm_prob=torch.tensor(0.0, **kw), n_sv=(1, 1, 1),
+                spans=(1, 1, 1), chunk=2)
+            args = (spec, torch.tensor([[10.0, 10.5, 9.0]], **kw),
+                    torch.tensor([[0.0, 0.0, 1.0]], **kw),
+                    torch.tensor([2.0], **kw))
+            dk, nk = mesh_kernel.nearest_hit(*args)
+            dp, np_ = mesh_kernel.nearest_hit_reference(*args)
+            want = torch.tensor(n1, **kw) if label == "duplicate" else np_[0]
+            if not (torch.equal(nk[0], np_[0]) and torch.equal(nk[0], want)
+                    and abs(float(dk[0]) - 1.0) <= 1e-6
+                    and abs(float(dk[0] - dp[0])) <= 1e-6):
+                raise AssertionError(
+                    f"mesh_hit tie ({label}, {dtype}): kernel {dk.tolist()} "
+                    f"{nk.tolist()}, plain {dp.tolist()} {np_.tolist()}")
+    say("mesh_hit ties: the tent and the duplicate record return the plain "
+        "version's record (float32 and float64)")
+
+
 def mesh_hit_vs_plain(bench):
     """Phase 7: the nearest-hit kernel against its plain version on the
-    bench bundle's classic pack, float32 and float64, rem = 1 and rem
-    uniform in (0, 1]. Returns the float32 rem = 1 record (the shape of a
-    step's first, full-batch query)."""
+    bench bundle's classic pack, float32 and float64: the full batch (rem
+    = 1 and rem uniform in (0, 1]), the compacted batch the engine's second
+    bounce pass sees, and the two tie cases. Returns the float32 rem = 1
+    record (the shape of a step's first, full-batch query) with the largest
+    error of all the batches."""
     from disimpy_tpu_torch import simulations
-    from disimpy_tpu_torch.engine import mesh_kernel
+    from disimpy_tpu_torch.engine import stepping
 
     sub, step_l = bench["substrate"], bench["step_l"]
     scale = 1.0 / step_l
@@ -543,66 +784,28 @@ def mesh_hit_vs_plain(bench):
         direction = torch.randn((n, 3), generator=g, device="cuda",
                                 dtype=dtype)
         direction = direction / direction.norm(dim=1, keepdim=True)
-        for rem_kind in ("1", "uniform"):
-            if rem_kind == "1":
-                rem = torch.ones(n, dtype=dtype, device="cuda")
-            else:
-                rem = 1.0 - torch.rand(n, generator=g, device="cuda",
-                                       dtype=dtype)
-            args = (spec, r0.contiguous(), direction.contiguous(), rem)
-            ms, (dk, nk) = _cuda_ms(lambda: mesh_kernel.nearest_hit(*args), 20)
-            plain_ms, (dp, np_) = _cuda_ms(
-                lambda: mesh_kernel.nearest_hit_reference(*args), 3)
-            # Hit masks (d <= rem: the hits the engine acts on) and forward
-            # masks (any finite d); distances and normals are held on the
-            # spins that hit in both, and the far forward hits are shown.
-            hk, hp = dk <= rem, dp <= rem
-            fk, fp = torch.isfinite(dk), torch.isfinite(dp)
-            differ = (hk != hp) | (fk != fp)
-            both = hk & hp
-            err = float((dk - dp)[both].abs().max())
-            align = (nk * np_).sum(dim=1).abs()[both]
-            worst = float(align.min())
-            far = fk & fp & ~both
-            rel_far = float(((dk - dp).abs() / dp)[far].max())
-            n_differ = int(differ.sum())
-            if name == "float32":
-                ok = (n_differ <= 1e-5 * n and err <= 1e-5
-                      and worst >= 1 - 1e-5)
-            else:
-                ok = n_differ == 0 and err <= 1e-12 and worst >= 1 - 1e-12
-            # The work this input needs: one test per record of each
-            # spin's row; each touched row's records read once, the spins'
-            # inputs read once and outputs written once.
-            cell, _ = mesh_kernel.halo_cells(*args)
-            tested = int(spec.cell_counts[cell].sum())
-            touched = torch.unique(cell)
-            item = spec.tri.element_size()
-            n_bytes = (int(spec.cell_counts[touched].sum()) * 12 * item
-                       + spec.cell_counts.numel() * 4 + n * 7 * item
-                       + n * 4 * item)
-            flops = tested * mesh_kernel.FLOPS_PER_RECORD
-            bound_ms, bound_by = bound(n_bytes, flops, name)
-            say(f"mesh_hit vs plain ({name}, rem {rem_kind}): {n} spins, "
-                f"{int(hk.sum())} hits within rem ({int(fk.sum())} forward "
-                f"hits); {n_differ} spins with other masks; max |d| diff "
-                f"{err:.3g} step lengths on the hits (on the farther forward "
-                f"hits: {rel_far:.3g} relative); min |normal dot| "
-                f"{worst:.9f} on the hits; "
-                f"{tested / n:.1f} records tested per spin (max "
-                f"{int(spec.cell_counts[cell].max())}); kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.3f} ms; {flops:.4g} flops, "
-                f"{n_bytes / 1e6:.1f} MB -> bound {bound_ms:.4f} ms "
-                f"({bound_by})")
-            if not ok:
-                raise AssertionError(f"mesh_hit ({name}, rem {rem_kind}) "
-                                     "disagrees with its plain version")
-            records[name, rem_kind] = dict(
-                ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms,
-                bound_by=bound_by)
-    record = dict(records["float32", "1"])
-    record["max_abs_err"] = max(r["max_abs_err"] for r in records.values())
-    return record
+        ones = torch.ones(n, dtype=dtype, device="cuda")
+        records[name, "1"], (d, normal) = _hit_check(
+            name, "rem 1", spec, r0, direction, ones)
+        records[name, "uniform"], _ = _hit_check(
+            name, "rem uniform", spec, r0, direction,
+            1.0 - torch.rand(n, generator=g, device="cuda", dtype=dtype))
+        # The second bounce pass of step_mesh: the full batch's hits
+        # reflected at their hit points with rem - d left, at most n / 8.
+        eps = simulations._effective_epsilon(
+            1e-13, scale, float(np.max(sub.voxel_size)) * scale, 150, dtype,
+            False)
+        hit = d <= ones + stepping._hit_slack(dtype)
+        r1, dir1, rem1, _ = stepping._resolve_mesh_hits(
+            spec, r0, direction, ones, d, normal, hit, ones, eps)
+        idx = (hit & (rem1 > 0)).nonzero()[:n // 8, 0]
+        records[name, "compacted"], _ = _hit_check(
+            name, "compacted second pass", spec, r1[idx], dir1[idx],
+            rem1[idx])
+    _hit_tie_cases()
+    full = dict(records["float32", "1"])
+    full["max_abs_err"] = max(r["max_abs_err"] for r in records.values())
+    return full
 
 
 def _misst_gradient(small_delta_ms, n_t=1000):

@@ -1,27 +1,44 @@
-// One J-step epoch of fused mesh physics, one thread per spin.
+// One J-step epoch of fused mesh physics, eight lanes per spin.
 //
-// Replaces disimpy_tpu/engine/pallas_fused.py::_kernel (launched by _launch,
-// wrapped by fused_epoch). Spins arrive sorted by anchor cell; each thread
-// runs all J steps of its spin: a fresh unit direction and a full segment
-// per step, then bounce passes until the segment is used up or max_iter
-// is hit. A pass folds the distance-ordered prefix of the anchor cell's
-// row that the spin can reach (feature-form Moller-Trumbore, strict-<
-// running minimum, ties to the lowest sublane r), then reflects or, with
-// probability perm, crosses the nearest hit.
+// Replaces disimpy_tpu/engine/pallas_fused.py:277 (_kernel, launched by
+// _launch, wrapped by fused_epoch). Spins arrive sorted by anchor cell;
+// each group of eight consecutive lanes runs all J steps of one spin: a
+// fresh unit direction and a full segment per step, then bounce passes
+// until the segment is used up or max_iter is hit. A pass folds the
+// distance-ordered prefix of the anchor cell's row that the spin can
+// reach (feature-form Moller-Trumbore, strict-< running minimum, ties to
+// the lowest sublane r, then to the earliest (unit, group)), then
+// reflects or, with probability perm, crosses the nearest hit.
 //
-// What bounds it on the H100: fp32 issue rate and warp divergence in the
-// bounce loop, not DRAM. A spin reads its cell's row straight from the
-// JAX table layout (16 contiguous floats per triangle, four float4 loads);
-// spins are sorted by anchor cell, so warp-mates read the same rows and
-// those are served from L1/L2.
+// What bounds it on the H100: the fp32 issue rate of the fold (about 17
+// units of 64 triangles per spin and epoch on the bench bundle, ~40
+// operations per triangle), not DRAM: spins sorted by anchor cell share
+// rows, so L1 and L2 serve the table (16 floats per triangle, four float4
+// loads). Run one thread per spin, the fold was held back by divergence:
+// each lane's prefix count (0-63 units) and number of bounce passes
+// differ, so a warp ran the maximum of both over 32 spins, 64 triangles
+// per unit one after another.
 //
-// What the design does about it: each thread picks its OWN prefix level
-// from its own reach (distance to the anchor-cell box + remaining segment
-// + margin) instead of the TPU's maximum over a (run x 128-lane block)
-// segment, so a settled or short-segment spin folds no more than it needs
-// (on the TPU, benchmarks/README.md reports a fold-lane occupancy of 0.401
-// under the shared level). Both choices cover every triangle within reach,
-// so the accepted hits are the same.
+// What the design does about it:
+// - each spin picks its OWN prefix level from its own reach (distance to
+//   the anchor-cell box + remaining segment + margin) instead of the
+//   TPU's maximum over a (run x 128-lane block) segment, so a settled or
+//   short-segment spin folds no more than it needs (on the TPU,
+//   benchmarks/README.md reports a fold-lane occupancy of 0.401 under the
+//   shared level); both choices cover every triangle within reach;
+// - lane r of a spin's group folds sublane r of every group g of every
+//   unit (the unit layout puts triangle 8g + r at sublane r), 8 triangles
+//   per unit instead of 64, keeping its earliest (unit, g) for equal t;
+//   three shuffle rounds then reduce the group by (t, r), which is the
+//   serial order. Divergence is then among the 4 spins of a warp, not 32;
+// - the eight lanes read their triangles' quads side by side: the kernel
+//   takes a quad-major copy of the table (engine/fused_kernel.quad_major),
+//   so each float4 load of a group is one 128-byte line. In the JAX
+//   layout the eight sublanes lie 512 bytes apart, a load touched eight
+//   lines, and the fold waited on L1;
+// - the pass set-up, the in-kernel threefry and the resolve run in all
+//   eight lanes on identical values, so no broadcast is needed; lane 0
+//   writes the outputs.
 //
 // C interface (bound with ctypes): every entry point returns
 // cudaGetLastError() after its launch.
@@ -39,6 +56,8 @@ constexpr int kMaxJ = 5;
 constexpr float kEdgeTol = 1e-5f;   // barycentric leak-proofing tolerance
 constexpr float kSlack = 1e-5f;     // hit-acceptance slack (step lengths)
 constexpr float kReqMargin = 0.05f; // margin on the reach before the ladder
+constexpr int kLanes = 8;           // lanes per spin: one per sublane r
+constexpr int kThreads = 128;       // threads per block
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -92,7 +111,7 @@ struct EpochParams {
   float fine[kNumFine];    // FINE_LADDER
 };
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kThreads)
 fused_epoch_kernel(const float* __restrict__ pos,      // (3, n)
                    const float* __restrict__ dirs,     // (J, 3, n)
                    const int* __restrict__ ids,        // (n,)
@@ -100,15 +119,18 @@ fused_epoch_kernel(const float* __restrict__ pos,      // (3, n)
                    const int* __restrict__ packed,     // (n,)
                    const int* __restrict__ packed2,    // (n,)
                    const float* __restrict__ corner,   // (3, n)
-                   const float* __restrict__ table,    // (units, 8, 128)
+                   const float* __restrict__ table,    // (units, 8, 4, 8, 4)
                    const float* __restrict__ sv_width, // (3,)
                    const float* __restrict__ perm_ptr, // ()
                    float* __restrict__ out_pos,        // (J, 3, n)
                    int* __restrict__ out_cross,        // (J, n)
                    bool* __restrict__ out_exc,         // (n,)
                    EpochParams p) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n) return;
+  const int i = blockIdx.x * (kThreads / kLanes) + threadIdx.x / kLanes;
+  if (i >= p.n) return;  // the whole group of the spin returns together
+  const int r = threadIdx.x % kLanes;  // this lane's sublane
+  const unsigned group = ((1u << kLanes) - 1u)
+                         << (threadIdx.x & 31 & ~(kLanes - 1));
   const int n = p.n;
   float x = pos[i], y = pos[n + i], z = pos[2 * n + i];
   const float cx = corner[i], cy = corner[n + i], cz = corner[2 * n + i];
@@ -148,38 +170,56 @@ fused_epoch_kernel(const float* __restrict__ pos,      // (3, n)
 
         // Fold: nearest forward hit; equal t resolves to the lowest
         // sublane r, then to the earliest (unit, group) — the TPU order.
+        // This lane folds sublane r of every (unit, group).
         float best = CUDART_INF_F, bnx = 0.0f, bny = 0.0f, bnz = 0.0f;
         int best_r = 8;
         for (int c = 0; c < cnt; ++c) {
-          const float* unit = table + (size_t)(row + c) * 1024;
-          for (int g = 0; g < 8; ++g) {
+          // Quad q of triangle (g, r) is float4 (4g + q) * 8 + r of the
+          // unit, so the group's eight loads are 128 contiguous bytes.
+          const float4* sub =
+              reinterpret_cast<const float4*>(table + (size_t)(row + c) * 1024)
+              + r;
 #pragma unroll
-            for (int r = 0; r < 8; ++r) {
-              const float4* f4 =
-                  reinterpret_cast<const float4*>(unit + r * 128 + 16 * g);
-              const float4 a = __ldg(f4), b = __ldg(f4 + 1);
-              const float4 c4 = __ldg(f4 + 2), d = __ldg(f4 + 3);
-              const float det = -(dx * a.x + dy * a.y + dz * a.z);
-              const float tn = (xq * a.x + yq * a.y + zq * a.z) - a.w;
-              const float un = (ccx * b.x + ccy * b.y + ccz * b.z) -
-                               (dx * b.w + dy * c4.x + dz * c4.y);
-              const float vn = -(ccx * c4.z + ccy * c4.w + ccz * d.x) -
-                               (dx * d.y + dy * d.z + dz * d.w);
-              const float inv = 1.0f / det;
-              const float t = tn * inv;
-              const float u = un * inv;
-              const float v = vn * inv;
-              const bool ok = (det != 0.0f) && (u >= -kEdgeTol) &&
-                              (u <= 1.0f + kEdgeTol) && (v >= -kEdgeTol) &&
-                              (u + v <= 1.0f + kEdgeTol) && (t > 0.0f);
-              if (ok && (t < best || (t == best && r < best_r))) {
-                best = t;
-                best_r = r;
-                bnx = a.x;
-                bny = a.y;
-                bnz = a.z;
-              }
+          for (int g = 0; g < 8; ++g) {
+            const float4* f4 = sub + 32 * g;
+            const float4 a = __ldg(f4), b = __ldg(f4 + 8);
+            const float4 c4 = __ldg(f4 + 16), d = __ldg(f4 + 24);
+            const float det = -(dx * a.x + dy * a.y + dz * a.z);
+            const float tn = (xq * a.x + yq * a.y + zq * a.z) - a.w;
+            const float un = (ccx * b.x + ccy * b.y + ccz * b.z) -
+                             (dx * b.w + dy * c4.x + dz * c4.y);
+            const float vn = -(ccx * c4.z + ccy * c4.w + ccz * d.x) -
+                             (dx * d.y + dy * d.z + dz * d.w);
+            const float inv = 1.0f / det;
+            const float t = tn * inv;
+            const float u = un * inv;
+            const float v = vn * inv;
+            const bool ok = (det != 0.0f) && (u >= -kEdgeTol) &&
+                            (u <= 1.0f + kEdgeTol) && (v >= -kEdgeTol) &&
+                            (u + v <= 1.0f + kEdgeTol) && (t > 0.0f);
+            if (ok && (t < best || (t == best && r < best_r))) {
+              best = t;
+              best_r = r;
+              bnx = a.x;
+              bny = a.y;
+              bnz = a.z;
             }
+          }
+        }
+        // The group's lexicographic minimum of (t, r), in all its lanes.
+#pragma unroll
+        for (int off = kLanes / 2; off > 0; off >>= 1) {
+          const float t_o = __shfl_xor_sync(group, best, off, kLanes);
+          const int r_o = __shfl_xor_sync(group, best_r, off, kLanes);
+          const float x_o = __shfl_xor_sync(group, bnx, off, kLanes);
+          const float y_o = __shfl_xor_sync(group, bny, off, kLanes);
+          const float z_o = __shfl_xor_sync(group, bnz, off, kLanes);
+          if (t_o < best || (t_o == best && r_o < best_r)) {
+            best = t_o;
+            best_r = r_o;
+            bnx = x_o;
+            bny = y_o;
+            bnz = z_o;
           }
         }
 
@@ -227,12 +267,14 @@ fused_epoch_kernel(const float* __restrict__ pos,      // (3, n)
       z = z + dz * rem;
       exc = exc || iters >= p.max_iter;
     }
-    out_pos[(3 * s) * n + i] = x;
-    out_pos[(3 * s + 1) * n + i] = y;
-    out_pos[(3 * s + 2) * n + i] = z;
-    out_cross[s * n + i] = crossings;
+    if (r == 0) {
+      out_pos[(3 * s) * n + i] = x;
+      out_pos[(3 * s + 1) * n + i] = y;
+      out_pos[(3 * s + 2) * n + i] = z;
+      out_cross[s * n + i] = crossings;
+    }
   }
-  out_exc[i] = exc;
+  if (r == 0) out_exc[i] = exc;
 }
 
 __global__ void threefry_kernel(const int* __restrict__ x0,
@@ -257,9 +299,9 @@ int fused_epoch_launch(const void* pos, const void* dirs, const void* ids,
                        const void* perm, void* out_pos, void* out_cross,
                        void* out_exc, EpochParams p, void* stream) {
   if (p.n > 0) {
-    const int threads = 128;
-    const int blocks = (p.n + threads - 1) / threads;
-    fused_epoch_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    const int spins = kThreads / kLanes;  // per block
+    const int blocks = (p.n + spins - 1) / spins;
+    fused_epoch_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const float*)pos, (const float*)dirs, (const int*)ids,
         (const int*)start, (const int*)packed, (const int*)packed2,
         (const float*)corner, (const float*)table, (const float*)sv_width,

@@ -1,5 +1,5 @@
-// Nearest forward triangle hit per spin in its halo cell, one thread per
-// spin.
+// Nearest forward triangle hit per spin in its halo cell: spins grouped
+// by cell into tiles, each tile's row staged in shared memory.
 //
 // Replaces disimpy_tpu/engine/pallas_mesh.py:119 (_kernel, launched by
 // _run_query, wrapped by nearest_hit_pallas): the classic mesh engine's
@@ -8,36 +8,56 @@
 // box, floor(min(r0, r0 + dir * rem) / sv_width), wrapped into the voxel
 // with the whole-voxel shift applied to r0; then Moller-Trumbore against
 // the cell's first cell_counts[cell] records (EDGE_TOL band on u, v and
-// u + v, det != 0, t > 0), keeping the closest t with a strict < in record
-// order, so ties go to the lowest record. Output: min_d (inf where nothing
-// is hit) and the hit triangle's unoriented unit normal (zero where
-// nothing is hit).
+// u + v, det != 0, t > 0), keeping the closest t, ties to the lowest
+// record. Output: min_d (inf where nothing is hit) and the hit triangle's
+// unoriented unit normal (zero where nothing is hit).
 //
-// The TPU kernel sorted the spins by cell, streamed each cell's row into
-// VMEM once per run of spins, and sorted the results back, because a TPU
-// gather runs on the scalar core (pallas_mesh.py:3-6). On the GPU each
-// thread reads its own row: no sorts, no transposed table.
+// What bounds it on the H100: the floating-point issue rate of the
+// record tests (about 180 records per spin on the bench bundle, ~50
+// operations each). The row data is small and shared: a cell's row
+// (up to ~320 records of 48 or 96 bytes) serves every spin of that cell.
+// Taken one thread per spin in caller order, a warp ran as long as its
+// longest row, its lanes read 32 different rows through L2, and the
+// engine's compacted bounce passes (at most n / 8 spins) left the card
+// latency-bound.
 //
-// What bounds it on the H100: floating-point issue rate. A spin tests
-// about 180 records (the bench bundle) at about 50 operations each, and
-// each record is 48 bytes (float) that neighbouring spins of the same
-// cell also read, so the table's bytes are mostly served from L2. Warp
-// divergence adds to it: a warp runs as long as its spin with the longest
-// row. This version does nothing about either; sorting spins by cell and
-// staging a cell's row in shared memory per block, as the TPU design did
-// with VMEM, is the next step.
+// The design, one query = a memset and four kernels on the caller's
+// stream, no host sync:
+//   1. cell pass: each spin's halo cell; per-cell counts by atomics, and
+//      each spin's rank within its cell;
+//   2. scan (one block): cell offsets, and the tiles: runs of at most
+//      kTile spins of one cell;
+//   3. scatter: spin indices in cell order;
+//   4. hit pass: one block per tile. The cell's row streams through shared
+//      memory in stages of the pack's chunk (cp.async, 16-byte copies,
+//      double-buffered) and is stored as (A, E1, E2, normal) columns, so
+//      E1 and E2 are formed once per record (the same subtractions, so the
+//      same bits) and the lanes read it by broadcast or on distinct banks.
+//      The block's kTile threads are split among the tile's s spins: L =
+//      min(32, kTile / s rounded down to a power of two) lanes per spin.
+//      Lane j tests records j, j + L, ... keeping its first minimum with a
+//      strict <, and the L lanes reduce by (t, record) lexicographically,
+//      so equal distances still resolve to the lowest record. A dense tile
+//      (the full batch: ~76 spins per occupied cell) runs one lane per
+//      spin; a sparse bounce pass gets up to 32 lanes per spin.
+//   5. lane 0 of each spin writes its result at the spin's own index.
 //
-// The arithmetic follows _mt_block's order (inv_det = 1 / det, then t, u
+// The record test keeps _mt_block's order (inv_det = 1 / det, then t, u
 // and v as products with it), so the kernel and the plain torch version
 // differ only by nvcc's FMA contraction.
 //
-// C interface (bound with ctypes): each entry point returns
-// cudaGetLastError() after its launch.
+// C interface (bound with ctypes): mesh_hit_scratch_words gives the int32
+// scratch a query needs; each launch entry point returns the first CUDA
+// error of its launches (0 on success).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
+
+constexpr int kTile = 128;   // threads of a hit block; most spins per tile
+constexpr int kStage = 64;   // most records staged at once
+constexpr int kScan = 1024;  // threads of the one-block scan
 
 __device__ __forceinline__ float inf_of(float) { return CUDART_INF_F; }
 __device__ __forceinline__ double inf_of(double) { return CUDART_INF; }
@@ -47,63 +67,223 @@ __device__ __forceinline__ int floor_div(int a, int m) {
   return a >= 0 ? a / m : -((-a + m - 1) / m);
 }
 
+// The spin's halo cell; s gets r0 shifted by the same whole voxels and d
+// the direction.
 template <typename T>
-__global__ void __launch_bounds__(256) mesh_hit_kernel(
+__device__ __forceinline__ int halo_cell(const T* __restrict__ r0,
+                                         const T* __restrict__ dir,
+                                         const T* __restrict__ rem, int i,
+                                         const T* __restrict__ sv_width,
+                                         const T* __restrict__ voxel,
+                                         const int nsv[3], T s[3], T d[3]) {
+  int c[3];
+  const T rm = rem[i];
+  for (int a = 0; a < 3; ++a) {
+    const T p = r0[3 * i + a];
+    d[a] = dir[3 * i + a];
+    const T e = p + d[a] * rm;
+    const T lo = e < p ? e : p;
+    const int base = (int)floor(lo / sv_width[a]);
+    const int shift = floor_div(base, nsv[a]);
+    c[a] = base - shift * nsv[a];
+    s[a] = p - (T)shift * voxel[a];
+  }
+  return (c[0] * nsv[1] + c[1]) * nsv[2] + c[2];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256) cell_pass(
+    const T* __restrict__ r0, const T* __restrict__ dir,
+    const T* __restrict__ rem, const T* __restrict__ sv_width,
+    const T* __restrict__ voxel, int n, int n0, int n1, int n2,
+    int* __restrict__ fill, int* __restrict__ cell_of,
+    int* __restrict__ rank_of) {
+  const int nsv[3] = {n0, n1, n2};
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    T s[3], d[3];
+    const int cell = halo_cell(r0, dir, rem, i, sv_width, voxel, nsv, s, d);
+    cell_of[i] = cell;
+    rank_of[i] = atomicAdd(fill + cell, 1);
+  }
+}
+
+// One block: exclusive scans of the per-cell spin counts and tile counts,
+// then each cell's tiles as (cell, first sorted position, spins).
+__global__ void __launch_bounds__(kScan) scan_pass(
+    const int* __restrict__ fill, int n_cells, int* __restrict__ start,
+    int4* __restrict__ tiles, int* __restrict__ n_tiles) {
+  __shared__ int sa[kScan], sb[kScan];
+  const int tid = threadIdx.x;
+  const int per = (n_cells + kScan - 1) / kScan;
+  const int lo = min(tid * per, n_cells);
+  const int hi = min(lo + per, n_cells);
+  int a = 0, b = 0;
+  for (int c = lo; c < hi; ++c) {
+    a += fill[c];
+    b += (fill[c] + kTile - 1) / kTile;
+  }
+  sa[tid] = a;
+  sb[tid] = b;
+  __syncthreads();
+  for (int off = 1; off < kScan; off <<= 1) {
+    const int x = tid >= off ? sa[tid - off] : 0;
+    const int y = tid >= off ? sb[tid - off] : 0;
+    __syncthreads();
+    sa[tid] += x;
+    sb[tid] += y;
+    __syncthreads();
+  }
+  int pos = sa[tid] - a, tile = sb[tid] - b;
+  for (int c = lo; c < hi; ++c) {
+    const int cnt = fill[c];
+    start[c] = pos;
+    for (int q = 0; q < cnt; q += kTile) {
+      tiles[tile++] = make_int4(c, pos + q, min(kTile, cnt - q), 0);
+    }
+    pos += cnt;
+  }
+  if (tid == kScan - 1) *n_tiles = sb[kScan - 1];
+}
+
+__global__ void __launch_bounds__(256) scatter_pass(
+    const int* __restrict__ cell_of, const int* __restrict__ rank_of,
+    const int* __restrict__ start, int n, int* __restrict__ perm) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    perm[start[cell_of[i]] + rank_of[i]] = i;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most one committed group is still in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTile) hit_pass(
     const T* __restrict__ r0, const T* __restrict__ dir,
     const T* __restrict__ rem, const T* __restrict__ tri,
     const int* __restrict__ counts, const T* __restrict__ sv_width,
-    const T* __restrict__ voxel, int n, int n0, int n1, int n2, int k_pad,
-    T edge_tol, T* __restrict__ out_d, T* __restrict__ out_n) {
+    const T* __restrict__ voxel, int n0, int n1, int n2, int k_pad,
+    int stage, T edge_tol, const int* __restrict__ perm,
+    const int4* __restrict__ tiles, const int* __restrict__ n_tiles,
+    T* __restrict__ out_d, T* __restrict__ out_n) {
+  // Raw records as they arrive (double-buffered), and the staged columns:
+  // A (0-2), E1 (3-5), E2 (6-8), normal (9-11).
+  __shared__ __align__(16) T raw[2][kStage * 12];
+  __shared__ T col[12][kStage];
+  if ((int)blockIdx.x >= *n_tiles) return;
+  const int4 tl = tiles[blockIdx.x];
+  const int cell = tl.x, s_count = tl.z;
+  int L = 1;
+  while (L < 32 && 2 * L * s_count <= kTile) L *= 2;
+  const int slot = threadIdx.x / L;
+  const int lane = threadIdx.x & (L - 1);
+  const bool live = slot < s_count;
   const int nsv[3] = {n0, n1, n2};
   const T lo_tol = -edge_tol;
   const T hi_tol = T(1) + edge_tol;
-  const T inf = inf_of(T(0));
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    T d[3], s[3];
-    int c[3];
-    const T rm = rem[i];
-    for (int a = 0; a < 3; ++a) {
-      const T p = r0[3 * i + a];
-      d[a] = dir[3 * i + a];
-      const T e = p + d[a] * rm;
-      const T lo = e < p ? e : p;
-      const int base = (int)floor(lo / sv_width[a]);
-      const int shift = floor_div(base, nsv[a]);
-      c[a] = base - shift * nsv[a];
-      s[a] = p - (T)shift * voxel[a];
-    }
-    const int cell = (c[0] * n1 + c[1]) * n2 + c[2];
-    const int cnt = counts[cell];
-    const T* row = tri + (size_t)cell * k_pad * 12;
-    T best = inf;
-    int best_k = -1;
-    for (int k = 0; k < cnt; ++k) {
-      const T* q = row + 12 * k;
-      const T ax = q[0], ay = q[1], az = q[2];
-      const T e1x = q[3] - ax, e1y = q[4] - ay, e1z = q[5] - az;
-      const T e2x = q[6] - ax, e2y = q[7] - ay, e2z = q[8] - az;
-      const T tx = s[0] - ax, ty = s[1] - ay, tz = s[2] - az;
-      // P = dir x E2, Q = T x E1.
-      const T px = d[1] * e2z - d[2] * e2y;
-      const T py = d[2] * e2x - d[0] * e2z;
-      const T pz = d[0] * e2y - d[1] * e2x;
-      const T qx = ty * e1z - tz * e1y;
-      const T qy = tz * e1x - tx * e1z;
-      const T qz = tx * e1y - ty * e1x;
-      const T det = px * e1x + py * e1y + pz * e1z;
-      const T inv_det = T(1) / det;
-      const T t = inv_det * (qx * e2x + qy * e2y + qz * e2z);
-      const T u = inv_det * (px * tx + py * ty + pz * tz);
-      const T v = inv_det * (qx * d[0] + qy * d[1] + qz * d[2]);
-      const bool ok = det != T(0) && u >= lo_tol && u <= hi_tol &&
-                      v >= lo_tol && v <= hi_tol && u + v <= hi_tol &&
-                      t > T(0);
-      if (ok && t < best) {
-        best = t;
-        best_k = k;
+  T s[3] = {T(0), T(0), T(0)}, d[3] = {T(0), T(0), T(0)};
+  int i = 0;
+  if (live) {
+    i = perm[tl.y + slot];
+    halo_cell(r0, dir, rem, i, sv_width, voxel, nsv, s, d);
+  }
+  const int cnt = counts[cell];
+  const T* row = tri + (size_t)cell * k_pad * 12;
+  const int n_stages = (cnt + stage - 1) / stage;
+  constexpr int kPieces = 12 * sizeof(T) / 16;  // 16-byte copies per record
+
+  auto issue = [&](int st) {
+    if (st < n_stages) {
+      const int k0 = st * stage;
+      const int pieces = min(stage, cnt - k0) * kPieces;
+      const char* src = reinterpret_cast<const char*>(row + 12 * k0);
+      char* dst = reinterpret_cast<char*>(raw[st & 1]);
+      for (int p = threadIdx.x; p < pieces; p += kTile) {
+        cp_async16(dst + 16 * p, src + 16 * p);
       }
     }
+    cp_async_commit();  // empty groups keep the count uniform
+  };
+
+  T best = inf_of(T(0));
+  int best_k = -1;
+  issue(0);
+  issue(1);
+  for (int st = 0; st < n_stages; ++st) {
+    cp_async_wait_one();
+    __syncthreads();  // stage st has landed; col is free
+    const int k0 = st * stage;
+    const int nrec = min(stage, cnt - k0);
+    for (int k = threadIdx.x; k < nrec; k += kTile) {
+      const T* q = raw[st & 1] + 12 * k;
+      const T ax = q[0], ay = q[1], az = q[2];
+      col[0][k] = ax;
+      col[1][k] = ay;
+      col[2][k] = az;
+      col[3][k] = q[3] - ax;
+      col[4][k] = q[4] - ay;
+      col[5][k] = q[5] - az;
+      col[6][k] = q[6] - ax;
+      col[7][k] = q[7] - ay;
+      col[8][k] = q[8] - az;
+      col[9][k] = q[9];
+      col[10][k] = q[10];
+      col[11][k] = q[11];
+    }
+    __syncthreads();  // col holds stage st; raw[st & 1] is free
+    issue(st + 2);
+    if (live) {
+      for (int kl = (lane - k0) & (L - 1); kl < nrec; kl += L) {
+        const T ax = col[0][kl], ay = col[1][kl], az = col[2][kl];
+        const T e1x = col[3][kl], e1y = col[4][kl], e1z = col[5][kl];
+        const T e2x = col[6][kl], e2y = col[7][kl], e2z = col[8][kl];
+        const T tx = s[0] - ax, ty = s[1] - ay, tz = s[2] - az;
+        // P = dir x E2, Q = T x E1.
+        const T px = d[1] * e2z - d[2] * e2y;
+        const T py = d[2] * e2x - d[0] * e2z;
+        const T pz = d[0] * e2y - d[1] * e2x;
+        const T qx = ty * e1z - tz * e1y;
+        const T qy = tz * e1x - tx * e1z;
+        const T qz = tx * e1y - ty * e1x;
+        const T det = px * e1x + py * e1y + pz * e1z;
+        const T inv_det = T(1) / det;
+        const T t = inv_det * (qx * e2x + qy * e2y + qz * e2z);
+        const T u = inv_det * (px * tx + py * ty + pz * tz);
+        const T v = inv_det * (qx * d[0] + qy * d[1] + qz * d[2]);
+        const bool ok = det != T(0) && u >= lo_tol && u <= hi_tol &&
+                        v >= lo_tol && v <= hi_tol && u + v <= hi_tol &&
+                        t > T(0);
+        if (ok && t < best) {
+          best = t;
+          best_k = k0 + kl;
+        }
+      }
+    }
+  }
+  // The spin's L lanes are aligned within a warp: a butterfly leaves the
+  // lexicographic minimum of (t, record) in every lane.
+  for (int off = L >> 1; off > 0; off >>= 1) {
+    const T t_o = __shfl_xor_sync(0xffffffffu, best, off);
+    const int k_o = __shfl_xor_sync(0xffffffffu, best_k, off);
+    if (t_o < best || (t_o == best && k_o < best_k)) {
+      best = t_o;
+      best_k = k_o;
+    }
+  }
+  if (live && lane == 0) {
     out_d[i] = best;
     for (int a = 0; a < 3; ++a) {
       out_n[3 * i + a] = best_k >= 0 ? row[12 * best_k + 9 + a] : T(0);
@@ -111,18 +291,64 @@ __global__ void __launch_bounds__(256) mesh_hit_kernel(
   }
 }
 
+int max_tiles(int n, int n_cells) {
+  return (n + kTile - 1) / kTile + (n < n_cells ? n : n_cells);
+}
+
+// Scratch (int32 words): cell and rank per spin, the permutation, per-cell
+// fill and start, the tile count, then the tiles (int4, 16-byte aligned).
+struct Scratch {
+  int *cell_of, *rank_of, *perm, *fill, *start, *n_tiles;
+  int4* tiles;
+};
+
+long long scratch_words(int n, int n_cells) {
+  const long long head = 3LL * n + 2LL * n_cells + 1;
+  return (head + 3) / 4 * 4 + 4LL * max_tiles(n, n_cells);
+}
+
+Scratch carve(void* base, int n, int n_cells) {
+  int* w = static_cast<int*>(base);
+  Scratch sc;
+  sc.cell_of = w;
+  sc.rank_of = w + n;
+  sc.perm = w + 2LL * n;
+  sc.fill = w + 3LL * n;
+  sc.start = sc.fill + n_cells;
+  sc.n_tiles = sc.start + n_cells;
+  const long long head = 3LL * n + 2LL * n_cells + 1;
+  sc.tiles = reinterpret_cast<int4*>(w + (head + 3) / 4 * 4);
+  return sc;
+}
+
+int grid_for(int n, int threads) {
+  const long long want = ((long long)n + threads - 1) / threads;
+  return (int)(want < 65536 ? want : 65536);
+}
+
 template <typename T>
 int launch(const void* r0, const void* dir, const void* rem, const void* tri,
            const void* counts, const void* sv_width, const void* voxel, int n,
-           int n0, int n1, int n2, int k_pad, T edge_tol, void* out_d,
-           void* out_n, void* stream) {
-  const int threads = 256;
-  long long want = ((long long)n + threads - 1) / threads;
-  const int blocks = (int)(want < (1 << 20) ? want : (1 << 20));
-  mesh_hit_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+           int n0, int n1, int n2, int k_pad, int chunk, T edge_tol,
+           void* out_d, void* out_n, void* scratch, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int n_cells = n0 * n1 * n2;
+  const Scratch sc = carve(scratch, n, n_cells);
+  cudaError_t rc = cudaMemsetAsync(sc.fill, 0, sizeof(int) * n_cells, st);
+  if (rc != cudaSuccess) return (int)rc;
+  cell_pass<T><<<grid_for(n, 256), 256, 0, st>>>(
+      (const T*)r0, (const T*)dir, (const T*)rem, (const T*)sv_width,
+      (const T*)voxel, n, n0, n1, n2, sc.fill, sc.cell_of, sc.rank_of);
+  scan_pass<<<1, kScan, 0, st>>>(sc.fill, n_cells, sc.start, sc.tiles,
+                                 sc.n_tiles);
+  scatter_pass<<<grid_for(n, 256), 256, 0, st>>>(sc.cell_of, sc.rank_of,
+                                                 sc.start, n, sc.perm);
+  const int stage = chunk < kStage ? chunk : kStage;
+  hit_pass<T><<<max_tiles(n, n_cells), kTile, 0, st>>>(
       (const T*)r0, (const T*)dir, (const T*)rem, (const T*)tri,
-      (const int*)counts, (const T*)sv_width, (const T*)voxel, n, n0, n1, n2,
-      k_pad, edge_tol, (T*)out_d, (T*)out_n);
+      (const int*)counts, (const T*)sv_width, (const T*)voxel, n0, n1, n2,
+      k_pad, stage, edge_tol, sc.perm, sc.tiles, sc.n_tiles, (T*)out_d,
+      (T*)out_n);
   return (int)cudaGetLastError();
 }
 
@@ -130,22 +356,30 @@ int launch(const void* r0, const void* dir, const void* rem, const void* tri,
 
 extern "C" {
 
+long long mesh_hit_scratch_words(int n, int n_cells) {
+  return scratch_words(n, n_cells);
+}
+
 int mesh_hit_launch_f32(const void* r0, const void* dir, const void* rem,
                         const void* tri, const void* counts,
                         const void* sv_width, const void* voxel, int n, int n0,
-                        int n1, int n2, int k_pad, float edge_tol, void* out_d,
-                        void* out_n, void* stream) {
+                        int n1, int n2, int k_pad, int chunk, float edge_tol,
+                        void* out_d, void* out_n, void* scratch,
+                        void* stream) {
   return launch<float>(r0, dir, rem, tri, counts, sv_width, voxel, n, n0, n1,
-                       n2, k_pad, edge_tol, out_d, out_n, stream);
+                       n2, k_pad, chunk, edge_tol, out_d, out_n, scratch,
+                       stream);
 }
 
 int mesh_hit_launch_f64(const void* r0, const void* dir, const void* rem,
                         const void* tri, const void* counts,
                         const void* sv_width, const void* voxel, int n, int n0,
-                        int n1, int n2, int k_pad, double edge_tol,
-                        void* out_d, void* out_n, void* stream) {
-  return launch<double>(r0, dir, rem, tri, counts, sv_width, voxel, n, n0, n1,
-                        n2, k_pad, edge_tol, out_d, out_n, stream);
+                        int n1, int n2, int k_pad, int chunk, double edge_tol,
+                        void* out_d, void* out_n, void* scratch,
+                        void* stream) {
+  return launch<double>(r0, dir, rem, tri, counts, sv_width, voxel, n, n0,
+                        n1, n2, k_pad, chunk, edge_tol, out_d, out_n, scratch,
+                        stream);
 }
 
 }  // extern "C"

@@ -2,16 +2,21 @@
 
 ``fused_epoch`` advances spins sorted by anchor cell (engine/fused.py)
 through all J steps of an epoch, every bounce inside. A CUDA tensor goes to
-the hand-written kernel ``csrc/fused_epoch.cu`` (one thread per spin); a
-CPU tensor goes to :func:`fused_epoch_reference`, the same arithmetic as
-plain vectorised torch. There is no fallback from one to the other.
+the hand-written kernel ``csrc/fused_epoch.cu``: eight lanes per spin, lane
+r folding sublane r of each unit, the group reduced by (t, r) with warp
+shuffles. A CPU tensor goes to :func:`fused_epoch_reference`, the same
+arithmetic as plain vectorised torch. There is no fallback from one to the
+other.
 
 The kernel is the counterpart of the JAX package's Pallas kernel
-``engine/pallas_fused.py::_kernel``; both read the same table layout
-(engine/fused.py ``FusedMeshSpec.table``).
+``engine/pallas_fused.py::_kernel``. Both read the records of
+``FusedMeshSpec.table`` (engine/fused.py); the CUDA kernel reads them from a
+quad-major copy (:func:`quad_major`) in which a spin's eight lanes find
+their sixteen-byte pieces side by side.
 """
 
 import ctypes
+import weakref
 
 import torch
 
@@ -67,6 +72,27 @@ def _int32(x):
 def _ladder(spec, J):
     """The dilation ladder the table was packed with (same eps margin)."""
     return _dilations(J, eps_margin=EPS_BOUNCES * spec.eps_budget)
+
+
+# Quad-major copies of the tables launched so far, by id of the table:
+# (weak reference to the table, copy). An entry goes when its table does.
+_quad_major = {}
+
+
+def quad_major(table):
+    """The (units, 8, 128) float32 table with each unit's floats reordered
+    from (sublane r, group g, quad q, 4) to (g, q, r, 4), so that the
+    kernel's eight lanes (one per sublane) read one quad of eight triangles
+    as 128 contiguous bytes. Made once per table tensor and kept while it
+    lives; the table is never written after the pack."""
+    key = id(table)
+    entry = _quad_major.get(key)
+    if entry is not None and entry[0]() is table:
+        return entry[1]
+    copy = table.view(-1, 8, 8, 4, 4).permute(0, 2, 3, 1, 4).contiguous()
+    _quad_major[key] = (weakref.ref(table), copy)
+    weakref.finalize(table, _quad_major.pop, key, None)
+    return copy
 
 
 def fused_epoch(spec, pos_s, dirs, ids_s, start_s, packed_s, packed2_s,
@@ -154,7 +180,7 @@ def _fused_epoch_cuda(spec, pos_s, dirs, ids_s, start_s, packed_s,
         rc = fn(
             pos_s.data_ptr(), dirs.data_ptr(), ids_s.data_ptr(),
             start_s.data_ptr(), packed_s.data_ptr(), packed2_s.data_ptr(),
-            corner_s.data_ptr(), spec.table.data_ptr(),
+            corner_s.data_ptr(), quad_major(spec.table).data_ptr(),
             spec.sv_width.data_ptr(), spec.perm_prob.data_ptr(),
             out_pos.data_ptr(), out_cross.data_ptr(), out_exc.data_ptr(),
             params, stream,

@@ -5,9 +5,12 @@ collision query on a halo-layout :class:`MeshSpec` (``spans == (1, 1,
 1)``): the closest strictly-forward Moller-Trumbore hit along ``r0 + s *
 direction``, ``s`` in ``(0, rem]`` being the caller's concern, among the
 records of the spin's halo cell. A CUDA tensor goes to the hand-written
-kernel ``csrc/mesh_hit.cu`` (one thread per spin, float32 or float64); a
-CPU tensor goes to :func:`nearest_hit_reference`, the same arithmetic as
-plain torch. There is no fallback from one to the other.
+kernel ``csrc/mesh_hit.cu`` (float32 or float64): it groups the spins by
+cell into tiles of at most 128, stages each tile's row in shared memory,
+and splits a block's 128 threads among the tile's spins, up to 32 lanes
+per spin, reducing by (distance, record). A CPU tensor goes to
+:func:`nearest_hit_reference`, the same arithmetic as plain torch. There
+is no fallback from one to the other.
 
 The kernel is the counterpart of the JAX package's Pallas kernel
 ``engine/pallas_mesh.py::_kernel``; both read the same table, the Pallas
@@ -15,6 +18,7 @@ kernel after a transpose that the GPU does not need.
 """
 
 import ctypes
+import math
 
 import torch
 
@@ -105,6 +109,9 @@ def _nearest_hit_cuda(spec, r0, direction, rem):
         raise ValueError(f"the mesh_hit kernel takes float32 or float64, "
                          f"not {dtype}")
     n_cells, n_chunks, chunk, _ = spec.tri.shape
+    if n_cells != math.prod(spec.n_sv):
+        raise ValueError(f"spec.tri has {n_cells} rows for an n_sv of "
+                         f"{spec.n_sv}")
     for name, t, dt, shape in (
         ("r0", r0, dtype, (n, 3)),
         ("direction", direction, dtype, (n, 3)),
@@ -115,14 +122,22 @@ def _nearest_hit_cuda(spec, r0, direction, rem):
         ("spec.voxel_size", spec.voxel_size, dtype, (3,)),
     ):
         _check(name, t, dt, shape, device)
+    if spec.tri.data_ptr() % 16:
+        raise ValueError("spec.tri must be 16-byte aligned (the kernel "
+                         "stages its rows with 16-byte copies)")
     min_d = torch.empty((n,), dtype=dtype, device=device)
     normal = torch.empty((n, 3), dtype=dtype, device=device)
     if n == 0:
         return min_d, normal
+    lib = load("mesh_hit").lib
+    lib.mesh_hit_scratch_words.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.mesh_hit_scratch_words.restype = ctypes.c_longlong
+    scratch = torch.empty((lib.mesh_hit_scratch_words(n, n_cells),),
+                          dtype=torch.int32, device=device)
     real = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
-    fn = getattr(load("mesh_hit").lib, _SYMBOLS[dtype])
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [real]
-                   + [ctypes.c_void_p] * 3)
+    fn = getattr(lib, _SYMBOLS[dtype])
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [real]
+                   + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -130,8 +145,8 @@ def _nearest_hit_cuda(spec, r0, direction, rem):
             r0.data_ptr(), direction.data_ptr(), rem.data_ptr(),
             spec.tri.data_ptr(), spec.cell_counts.data_ptr(),
             spec.sv_width.data_ptr(), spec.voxel_size.data_ptr(),
-            n, *spec.n_sv, n_chunks * chunk, EDGE_TOL[dtype],
-            min_d.data_ptr(), normal.data_ptr(), stream,
+            n, *spec.n_sv, n_chunks * chunk, chunk, EDGE_TOL[dtype],
+            min_d.data_ptr(), normal.data_ptr(), scratch.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"mesh_hit kernel launch failed: CUDA error {rc}")

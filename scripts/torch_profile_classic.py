@@ -1,11 +1,14 @@
-"""Where a classic-engine bench run of the PyTorch port spends its time.
+"""Where a classic-engine bench run of the PyTorch port spends its time,
+and the fused engine's run beside it.
 
 Runs the bench bundle (bench.py's workload: 102,400 triangles, 524,288
 spins x 150 steps x 32 measurements) through
 ``disimpy_tpu_torch.simulations.simulation(device="cuda")`` with
 ``config.use_fused = False``: three unprofiled warm runs, then one run
-under ``torch.profiler``. Prints the walls, the nearest-hit kernel's
-launches, the profiler's table and the operators with the most device
+under ``torch.profiler``; then the same through the fused engine (two
+unprofiled runs, one profiled). Prints the walls, the kernel launches,
+each kernel's summed device time (the nearest-hit query's four kernels
+together), the profiler's table and the operators with the most device
 time. Needs one CUDA GPU; run from the repository root:
 
     python3 scripts/torch_profile_classic.py
@@ -24,7 +27,12 @@ sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
 from disimpy_tpu_torch import gradients, meshes, simulations, substrates  # noqa: E402
-from disimpy_tpu_torch.engine import config, mesh_kernel  # noqa: E402
+from disimpy_tpu_torch.engine import (  # noqa: E402
+    config, fused_kernel, mesh_kernel)
+
+
+# The kernels of one nearest-hit query (csrc/mesh_hit.cu).
+MESH_HIT_KERNELS = ("cell_pass", "scan_pass", "scatter_pass", "hit_pass")
 
 
 def device_ms(event):
@@ -64,10 +72,29 @@ def main():
     finally:
         config.use_fused = None
     print(f"profiled wall {wall} s, {mesh_kernel.launches} mesh_hit launches")
-    table = prof.key_averages()
+    report(prof.key_averages(), "mesh_hit", MESH_HIT_KERNELS)
+
+    # The same workload through the fused engine (the default path).
+    walls = [run(seed) for seed in (1, 2)]
+    print(f"fused engine: unprofiled walls {walls} s ({smi})", flush=True)
+    fused_kernel.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = run(2)
+    print(f"fused engine: profiled wall {wall} s, {fused_kernel.launches} "
+          "fused_epoch launches")
+    report(prof.key_averages(), "fused_epoch", ("fused_epoch_kernel",))
+
+
+def report(table, name, kernels):
+    """Print the profiler's sums and the device time of the kernels whose
+    names contain one of ``kernels``."""
     total = sum(device_ms(e) for e in table)
+    mine = [e for e in table if any(k in e.key for k in kernels)]
     print(f"sum of self device time {total:.1f} ms (an operator and the "
-          "kernel it launches both count)")
+          f"kernel it launches both count); {name}: "
+          f"{sum(device_ms(e) for e in mine):.1f} ms device in "
+          + ", ".join(f"{e.key[:60]} x {e.count}" for e in mine))
     print(table.table(sort_by="self_cuda_time_total", row_limit=25))
     for e in sorted(table, key=device_ms, reverse=True)[:15]:
         print(f"{e.key[:60]:60s} count {e.count:7d} device "
