@@ -53,7 +53,32 @@ Phases, one line each (any failure raises, so the exit code is non-zero):
 10. the bench workload through the classic engine (``use_fused =
    False``): a warm-up and a timed run, kernel launches per run, finite
    signals, at most 1e-4 of the spins changing compartment, beside phase
-   6's fused time.
+   6's fused time;
+11. the exchange and relaxation checks of ``PARITY_r05.json`` at their
+   full size and thresholds: the closed cylinder mesh (perm 0.2, 1e5 intra
+   spins x 200 steps, b = 0, T2 25 / 150 ms) through the fused engine
+   (weight identity <= 1e-4, 1 / mean crossings <= 10) and again through
+   the classic engine (mean crossings and intra fraction within 4 standard
+   errors of the fused run), each with its kernel's launches; the
+   permeable analytic sphere (weight identity, fraction outside); uniform
+   T2 on free diffusion (<= 1e-5);
+12. the tracked fused window, kernel against plain version, from 16,384
+   intra starts of that cell (20 steps): crossings and intra steps equal
+   for every spin whose positions agree, at most 0.5% divergent;
+13. the bench workload with ``exchange_stats=True``: the host
+   classification time of the uniform starts (the run drops to 131,072
+   spins when a sample predicts over 60 s), the tracked run's time beside
+   an untracked run and phase 6's; no transits, intra steps 0 or 150 in
+   agreement with each start's distance to the nearest axis for all but
+   at most 1e-5 of the starts (the float32 ray-parity classifier counts a
+   grazed facet edge twice), and positions and signals equal to the
+   untracked run's bit for bit;
+14. the exchange cell (fused) and the permeable sphere (classic) at 1e5
+   spins x 40 steps split into two parts on one card against one part:
+   positions, crossings and intra steps equal per spin, signals within
+   1e-6; and ``sweeps.sweep_sphere_radii`` (2, 4, 6, 8 um; 1e4 spins x
+   1000 steps) against its four standalone runs (rtol 1e-6, atol 1e-5),
+   with both times.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the rest
@@ -78,6 +103,9 @@ DIFFUSIVITY = 2e-9
 # reference algorithm lets ~2e-5 through, mostly where the bundle's
 # cylinders touch across the periodic boundary (ROADMAP.md section 3).
 MAX_CHANGED = 1e-4
+# Most uniform starts of the bundle whose ray-parity class may contradict
+# their distance to the nearest axis (phase 13).
+MAX_MISCLASSIFIED = 1e-5
 # Published peaks of one H100 SXM (NVIDIA's data sheet; dense, outside the
 # tensor cores for floating point): the least time a kernel could take is
 # the larger of its bytes over HBM_RATE and its operations over the peak.
@@ -560,7 +588,7 @@ def _explain_changes(bench, changed, pos0, seed, eps):
     contacts = _contacts(bench)
     ids = torch.as_tensor(changed, dtype=torch.int32, device=pos0.device)
     start = pos0[:, ids.long()].contiguous()
-    kern = [start[None]] + [steps for steps, _ in fused.epochs(
+    kern = [start[None]] + [steps for steps, *_ in fused.epochs(
         spec, start, ids, 0, n_t, seed_k, eps, 1000)]
     kern = torch.cat(kern)[:n_t + 1].cpu()
     cpu_spec = replace(spec, **{f: getattr(spec, f).cpu() for f in (
@@ -568,9 +596,9 @@ def _explain_changes(bench, changed, pos0, seed, eps):
         "sv_width", "perm_prob")})
     gap = torch.zeros(len(changed))
     for t_base in range(0, n_t, J):
-        steps, _ = next(fused.epochs(
+        steps = next(fused.epochs(
             cpu_spec, kern[t_base].contiguous(), ids.cpu(), t_base,
-            min(J, n_t - t_base), seed_k, eps, 1000))
+            min(J, n_t - t_base), seed_k, eps, 1000))[0]
         k_steps = kern[t_base + 1:t_base + 1 + J]
         gap = torch.maximum(gap, (steps[:len(k_steps)] - k_steps).abs()
                             .amax(dim=(0, 1)))
@@ -1032,11 +1060,341 @@ def classic_bench(bench, smi, fused_runs):
     return runs
 
 
+# The two-compartment T2 pair of the PARITY exchange checks
+# (scripts/parity_r04.py): intra 25 ms, extra 150 ms.
+T2_PAIR = (25e-3, 150e-3)
+
+
+def _exchange_cylinder(perm=0.2):
+    """The closed cylinder mesh of the PARITY exchange checks: periodic,
+    n_sv 10^3, intra seeding."""
+    from disimpy_tpu_torch import substrates
+
+    with open(os.path.join(ORACLES, "cylinder_mesh_closed.pkl"), "rb") as f:
+        mesh = pickle.load(f)
+    return substrates.mesh(
+        mesh["vertices"], mesh["faces"], True, init_pos="intra",
+        n_sv=np.array([10, 10, 10]), quiet=True, perm_prob=perm,
+    )
+
+
+def _weight_gap(signal, intra_steps, n_t, dt):
+    """|S - sum w| / sum w at b = 0, w the relaxation weights the dwell
+    steps imply."""
+    k = intra_steps.astype(float)
+    w = np.exp(-(dt / T2_PAIR[0]) * k - (dt / T2_PAIR[1]) * (n_t - k))
+    return abs(float(signal) - w.sum()) / w.sum()
+
+
+def exchange_oracles():
+    """Phase 11: the five PARITY checks of exchange and relaxation at their
+    full size and thresholds (scripts/parity_r04.py), the exchange cell also
+    through the classic engine."""
+    import warnings
+
+    from disimpy_tpu_torch import gradients, simulations, substrates
+    from disimpy_tpu_torch.engine import config, fused_kernel, mesh_kernel
+
+    n, n_t, dt = 100000, 200, 2e-4
+    g0 = np.zeros((1, n_t, 3))
+    sub = _exchange_cylinder()
+    runs = {}
+    try:
+        for engine in ("fused", "classic"):
+            config.use_fused = engine == "fused"
+            fused_kernel.launches = mesh_kernel.launches = 0
+            t0 = time.perf_counter()
+            sig, stats = simulations.simulation(
+                n, DIFFUSIVITY, g0, dt, sub, quiet=True, seed=7,
+                relaxation=T2_PAIR, exchange_stats=True, device="cuda")
+            wall = time.perf_counter() - t0
+            k1, k2 = fused_kernel.launches, mesh_kernel.launches
+            gap = _weight_gap(sig[0], stats["intra_steps"], n_t, dt)
+            c = stats["crossings"].astype(float)
+            f = stats["intra_fraction"]
+            runs[engine] = dict(c=c, f=f)
+            say(f"exchange cell ({engine}): closed cylinder mesh, perm 0.2, "
+                f"{n} intra spins x {n_t} steps in {wall:.2f} s; "
+                f"{k1} fused_epoch and {k2} mesh_hit launches; weight "
+                f"identity |S - sum w| / sum w = {gap:.3g} (limit 1e-4); "
+                f"mean crossings {c.mean():.5f} (PARITY_r05 on the TPU: "
+                f"10.60821), mean intra fraction {f.mean():.5f}")
+            if engine == "fused" and not (k1 > 0 and k2 == 0):
+                raise AssertionError("the tracked fused run must launch "
+                                     "fused_epoch only")
+            if engine == "classic" and not (k2 > 0 and k1 == 0):
+                raise AssertionError("the tracked classic run must launch "
+                                     "mesh_hit only")
+            if not gap <= 1e-4:
+                raise AssertionError(f"{engine}: relaxation weights do not "
+                                     "match the dwell steps")
+    finally:
+        config.use_fused = None
+    rate = 1.0 / max(float(runs["fused"]["c"].mean()), 1e-9)
+    say(f"fused_exchange_rate_nonzero: 1 / mean crossings = {rate:.5f} "
+        "(limit 10)")
+    if not rate <= 10.0:
+        raise AssertionError("the permeable membrane does not exchange")
+    for name, key in (("mean crossings", "c"), ("mean intra fraction", "f")):
+        a, b = runs["fused"][key], runs["classic"][key]
+        se = math.sqrt(a.var() / len(a) + b.var() / len(b))
+        gap = abs(float(a.mean() - b.mean()))
+        say(f"fused vs classic {name}: {a.mean():.5f} vs {b.mean():.5f}, "
+            f"|diff| = {gap / se:.2f} standard errors (limit 4)")
+        if not gap <= 4 * se:
+            raise AssertionError(f"fused and classic {name} disagree")
+
+    sub = substrates.sphere(5e-6, perm_prob=0.3)
+    mesh_kernel.launches = fused_kernel.launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sig, pos, stats = simulations.simulation(
+            n, DIFFUSIVITY, g0, dt, sub, quiet=True, seed=7, final_pos=True,
+            relaxation=T2_PAIR, exchange_stats=True, device="cuda")
+    wall = time.perf_counter() - t0
+    gap = _weight_gap(sig[0], stats["intra_steps"], n_t, dt)
+    frac_out = float((np.linalg.norm(pos, axis=1) > 5e-6).mean())
+    say(f"permeable sphere (classic): r 5 um, perm 0.3, {n} spins x {n_t} "
+        f"steps in {wall:.2f} s; weight identity {gap:.3g} (limit 1e-4); "
+        f"fraction outside {frac_out:.5f} (perm_sphere_escape 1 - that = "
+        f"{1 - frac_out:.5f}, limit 1; the JAX package on the TPU: 0.97771 "
+        f"outside); mean crossings {stats['crossings'].mean():.5f}")
+    if not (gap <= 1e-4 and 1.0 - frac_out <= 1.0 and frac_out > 0):
+        raise AssertionError("the permeable sphere misses its checks")
+
+    bfree = np.linspace(1, 2e9, 100)
+    g, dt = gradients.pgse(20e-3, 40e-3, 500, bfree[:10],
+                           np.tile([[1.0, 0, 0]], (10, 1)))
+    t2 = 80e-3
+    base = simulations.simulation(20000, DIFFUSIVITY, g, dt,
+                                  substrates.free(), quiet=True, seed=3,
+                                  device="cuda")
+    weighted = simulations.simulation(20000, DIFFUSIVITY, g, dt,
+                                      substrates.free(), quiet=True, seed=3,
+                                      relaxation=t2, device="cuda")
+    err = float(np.abs(weighted / base - np.exp(-500 * dt / t2)).max())
+    say(f"uniform_t2_exact: free, 2e4 spins x 500 steps x 10 b, max "
+        f"|S_T2 / S - exp(-T / T2)| = {err:.3g} (limit 1e-5)")
+    if not err <= 1e-5:
+        raise AssertionError("uniform T2 is not an exact factor")
+
+
+def tracked_window():
+    """Phase 12: the tracked fused window, kernel against plain version,
+    from the same 16,384 intra starts of the exchange cell (20 steps, 5
+    epochs). Crossings and intra steps must be equal for every spin whose
+    positions agree (within 1e-4 step lengths); at most 0.5% may
+    diverge."""
+    from disimpy_tpu_torch import simulations
+    from disimpy_tpu_torch.engine import fused, fused_kernel
+
+    n, n_t, dt = 16384, 20, 2e-4
+    sub = _exchange_cylinder()
+    scale = 1.0 / math.sqrt(6 * DIFFUSIVITY * dt)
+    start = simulations._fill_mesh(n, sub, True, 11)
+    spec = simulations._fused_spec(sub, n, scale, torch.device("cuda"))
+    eps = simulations._effective_epsilon(
+        1e-13, scale, float(np.max(sub.voxel_size)) * scale, n_t,
+        torch.float32, False)
+    pos0 = torch.as_tensor(start.T * scale, dtype=torch.float32,
+                           device="cuda")
+
+    def run():
+        zeros = torch.zeros(n, dtype=torch.int32, device="cuda")
+        comp = (zeros, torch.ones(n, dtype=torch.bool, device="cuda"), zeros)
+        return fused.run_window_fused(
+            spec, pos0, torch.zeros((1, n), device="cuda"),
+            torch.zeros(n, dtype=torch.bool, device="cuda"),
+            torch.zeros((n_t, 1, 3), device="cuda"), range(n_t), 11, eps,
+            1000, track=True, compartments=comp)
+
+    fused_kernel.launches = 0
+    kp, _, _, (kc, _, ki) = run()
+    launched = fused_kernel.launches
+    kernel = fused_kernel.fused_epoch
+    fused_kernel.fused_epoch = fused_kernel.fused_epoch_reference
+    try:
+        pp, _, _, (pc, _, pi) = run()
+    finally:
+        fused_kernel.fused_epoch = kernel
+    diverged = (kp - pp).abs().amax(dim=0) > 1e-4
+    differ = (kc != pc) | (ki != pi)
+    frac = float(diverged.float().mean())
+    say(f"tracked window, kernel vs plain: {n} intra spins x {n_t} steps, "
+        f"{launched} kernel launches; crossings {int(kc.sum())} / "
+        f"{int(pc.sum())}, intra steps {int(ki.sum())} / {int(pi.sum())}; "
+        f"{int(differ.sum())} spins with other counts, "
+        f"{int((differ & ~diverged).sum())} of them with agreeing positions; "
+        f"divergent fraction {frac:.6f} (limit 0.005)")
+    if launched != math.ceil(n_t / spec.resort_every):
+        raise AssertionError(f"{launched} kernel launches in the tracked window")
+    if bool((differ & ~diverged).any()) or frac > 0.005:
+        raise AssertionError("the tracked window's counts differ from the "
+                             "plain version's")
+
+
+def tracked_bench(bench, smi, fused_runs):
+    """Phase 13: the bench workload with exchange_stats=True: the host
+    classification of the uniform starts, the tracked run beside an
+    untracked one with the same seed (equal positions and signals bit for
+    bit) and phase 6's timed run."""
+    from disimpy_tpu_torch import simulations
+    from disimpy_tpu_torch.engine import fused_kernel
+
+    sub, step_l = bench["substrate"], bench["step_l"]
+    scale = 1.0 / step_l
+    n_t, seed = 150, 2
+    vox = np.asarray(sub.voxel_size) * scale
+    # The classification rate on a sample decides the run's size.
+    sample = simulations._uniform_positions(32768, vox, seed, "cuda")
+    t0 = time.perf_counter()
+    classify = simulations._make_intra_classifier(sub)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    classify(sample.cpu().numpy().T.astype(float) * step_l)
+    estimate = t_build + (time.perf_counter() - t0) * 524288 / 32768
+    n = 524288 if estimate <= 60 else 131072
+    say(f"tracked bench: the classifier's build ({t_build:.1f} s) and 32,768 "
+        f"starts predict {estimate:.1f} s of host classification for "
+        f"524,288 -> running {n} spins")
+
+    timing = {}
+    start_parity = simulations._start_parity
+
+    def timed_parity(*args):
+        t = time.perf_counter()
+        out = start_parity(*args)
+        timing["classify"] = time.perf_counter() - t
+        return out
+
+    runs = {}
+    simulations._start_parity = timed_parity
+    try:
+        # Untracked first: at 131,072 spins it packs (and caches) the
+        # bundle for that spin count, so the tracked wall holds no pack.
+        for label, track in (("untracked", False), ("tracked", True)):
+            fused_kernel.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = simulations.simulation(
+                n, DIFFUSIVITY, bench["gradient"], bench["dt"], sub,
+                seed=seed, quiet=True, final_pos=True, exchange_stats=track,
+                device="cuda")
+            torch.cuda.synchronize()
+            runs[label] = (time.perf_counter() - t0, fused_kernel.launches,
+                           out)
+    finally:
+        simulations._start_parity = start_parity
+    wall, launched, (sig_t, pos_t, stats) = runs["tracked"]
+    wall_u, launched_u, (sig_u, pos_u) = runs["untracked"]
+    intra = stats["intra_steps"]
+    fraction = float((intra == n_t).mean())
+    pos0 = simulations._uniform_positions(n, vox, seed, "cuda")
+    d0 = _nearest(pos0.cpu().numpy().T[:, :2].astype(float) * step_l,
+                  *_bundle_axes(bench))
+    r = bench["radius"]
+    lo, hi = r * math.cos(math.pi / 32) * (1 - 1e-4), r * (1 + 1e-4)
+    wrong = int((((d0 < lo) & (intra != n_t)) | ((d0 > hi) & (intra != 0)))
+                .sum())
+    same = np.array_equal(pos_t, pos_u) and np.array_equal(sig_t, sig_u)
+    say(f"tracked bench: {n} spins x {n_t} steps x 32 meas, "
+        f"exchange_stats=True in {wall:.3f} s, of which host classification "
+        f"{timing['classify']:.3f} s; untracked {wall_u:.3f} s; phase 6 "
+        f"timed run {fused_runs['timed']['wall']:.3f} s ({smi}); "
+        f"{launched} / {launched_u} kernel launches; crossings total "
+        f"{int(stats['crossings'].sum())}; intra fraction {fraction:.6f}; "
+        f"{wrong} starts whose parity contradicts their distance to the "
+        f"nearest axis (limit {MAX_MISCLASSIFIED * n:g}); positions and signals "
+        f"{'equal bit for bit' if same else 'DIFFERENT'} to the untracked run")
+    expected = math.ceil(n_t / bench["spec"].resort_every)
+    if launched != expected or launched_u != expected:
+        raise AssertionError("the bench runs did not launch the kernel once "
+                             "per epoch")
+    if stats["crossings"].any() or not np.all((intra == 0) | (intra == n_t)):
+        raise AssertionError("the impermeable bundle reported transits")
+    # The start classifier is the reference's float32 +x-ray parity: a ray
+    # that grazes a facet edge within float32 rounding counts both facets
+    # (seed 2 at 524,288 spins: one start, 1e-13 m from an edge).
+    if wrong > MAX_MISCLASSIFIED * n or not same:
+        raise AssertionError("tracking changed a walk or misclassified starts")
+    return dict(n=n, wall=wall, classify=timing["classify"], untracked=wall_u)
+
+
+def split_and_sweeps():
+    """Phase 14: runs split over two parts on one card against the single
+    run (fused exchange cell and permeable analytic sphere, 1e5 spins x 40
+    steps), and a sphere radius sweep against its standalone runs."""
+    from disimpy_tpu_torch import simulations, substrates, sweeps
+    from disimpy_tpu_torch.engine import fused_kernel, mesh_kernel
+
+    n, n_t, dt = 100000, 40, 2e-4
+    g0 = np.zeros((1, n_t, 3))
+    for label, sub in (("fused exchange cell", _exchange_cylinder()),
+                       ("classic permeable sphere",
+                        substrates.sphere(5e-6, perm_prob=0.3))):
+        out = {}
+        for devices in (None, ["cuda:0", "cuda:0"]):
+            fused_kernel.launches = mesh_kernel.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = simulations.simulation(
+                n, DIFFUSIVITY, g0, dt, sub, quiet=True, seed=7,
+                final_pos=True, relaxation=T2_PAIR, exchange_stats=True,
+                devices=devices, device=None if devices else "cuda")
+            torch.cuda.synchronize()
+            out[devices is None] = (time.perf_counter() - t0,
+                                    fused_kernel.launches,
+                                    mesh_kernel.launches, res)
+        (w1, f1, m1, (s1, p1, st1)), (w2, f2, m2, (s2, p2, st2)) = (
+            out[True], out[False])
+        equal = (np.array_equal(p1, p2)
+                 and np.array_equal(st1["crossings"], st2["crossings"])
+                 and np.array_equal(st1["intra_steps"], st2["intra_steps"]))
+        rel = float(np.abs(s2 - s1).max() / np.abs(s1).max())
+        say(f"split ({label}): {n} spins x {n_t} steps, one part {w1:.2f} s "
+            f"({f1} fused_epoch / {m1} mesh_hit launches), two parts on "
+            f"cuda:0 {w2:.2f} s ({f2} / {m2}); positions, crossings and "
+            f"intra steps {'equal' if equal else 'DIFFERENT'} per spin; "
+            f"signals {rel:.3g} relative (limit 1e-6)")
+        if not (equal and rel <= 1e-6):
+            raise AssertionError(f"the split {label} differs from one part")
+        if label.startswith("fused") and not (f1 > 0 and f2 > 0):
+            raise AssertionError("the split fused runs did not launch "
+                                 "fused_epoch")
+
+    gradient, dt = _misst_gradient(30)
+    radii = np.array([2e-6, 4e-6, 6e-6, 8e-6])
+    n = 10000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    swept = sweeps.sweep_sphere_radii(n, DIFFUSIVITY, gradient, dt, radii,
+                                      device="cuda")
+    t_sweep = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    singles = np.stack([
+        simulations.simulation(n, DIFFUSIVITY, gradient, dt,
+                               substrates.sphere(float(r)), quiet=True,
+                               device="cuda")
+        for r in radii
+    ])
+    t_single = time.perf_counter() - t0
+    diff = float(np.abs(swept - singles).max())
+    ok = np.allclose(swept, singles, rtol=1e-6, atol=1e-5)
+    say(f"sphere radius sweep: radii 2/4/6/8 um, {n} spins x 1000 steps x "
+        f"100 b in {t_sweep:.2f} s; the four standalone runs {t_single:.2f} "
+        f"s; max |sweep - standalone| = {diff:.3g} "
+        f"({'within' if ok else 'OUTSIDE'} rtol 1e-6, atol 1e-5)")
+    if not ok:
+        raise AssertionError("a sweep row differs from its standalone run")
+
+
 def main():
     phases = (
         "card", "threefry", "bench setup", "fused kernel vs plain", "free",
         "mesh MISST", "fused bench", "mesh_hit vs plain", "analytic oracles",
-        "classic mesh", "classic bench",
+        "classic mesh", "classic bench", "exchange oracles", "tracked window",
+        "tracked bench", "split and sweeps",
     )
     walls = {}
 
@@ -1058,6 +1416,10 @@ def main():
     timed(phases[8], analytic_oracles)
     timed(phases[9], classic_mesh)
     classic = timed(phases[10], classic_bench, bench, smi, runs)
+    timed(phases[11], exchange_oracles)
+    timed(phases[12], tracked_window)
+    timed(phases[13], tracked_bench, bench, smi, runs)
+    timed(phases[14], split_and_sweeps)
     say(f"phases took {sum(walls.values()):.1f} s in all")
     k1 = kp[524288, 0.0]
     print(json.dumps({"kernels": [

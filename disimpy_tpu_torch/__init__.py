@@ -8,6 +8,8 @@ neither JAX nor ``disimpy_tpu``.
 
 Modules
 -------
+checkpoint
+    Resume checkpoints (the JAX package's ``.npz`` format).
 gradients
     Gradient-waveform toolkit (synthesis, b-value math, rotation, Camino IO).
 substrates
@@ -16,15 +18,20 @@ meshes
     Procedural triangular-mesh generators and STL/PLY IO.
 simulations
     The simulation driver and noise utilities.
+sweeps
+    Radius sweeps: many cylinder or sphere variants in one ensemble.
+parallel
+    Splitting spins over several devices.
 utils
     Rotation helpers and optional matplotlib visualization.
 engine
     The torch compute core and the CUDA kernel bindings.
 """
 
-from . import gradients, meshes, simulations, substrates, utils
+from . import (checkpoint, gradients, meshes, parallel, simulations,
+               substrates, sweeps, utils)
 
 __version__ = "0.1.0"
 
-__all__ = ["gradients", "meshes", "simulations", "substrates", "utils",
-           "__version__"]
+__all__ = ["checkpoint", "gradients", "meshes", "parallel", "simulations",
+           "substrates", "sweeps", "utils", "__version__"]

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -28,6 +29,17 @@ NVCC_FLAGS = (
 )
 
 Built = collections.namedtuple("Built", "lib path seconds log")
+
+# One lock per source: the parts of a split run may reach a kernel's first
+# use from several threads at once, and must not run nvcc into the same
+# temporary file; different sources still build side by side.
+_guard = threading.Lock()
+_locks = {}
+
+
+def _lock_for(name):
+    with _guard:
+        return _locks.setdefault(name, threading.Lock())
 
 
 def _nvcc():
@@ -62,16 +74,17 @@ def load(name):
     os.makedirs(BUILD_DIR, exist_ok=True)
     path = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     seconds, log = 0.0, ""
-    if not os.path.exists(path):
-        tmp = f"{path}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-            capture_output=True, text=True,
-        )
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {src}:\n{log}")
-        os.replace(tmp, path)  # atomic: concurrent builds never collide
+    with _lock_for(name):
+        if not os.path.exists(path):
+            tmp = f"{path}.{os.getpid()}.tmp"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                capture_output=True, text=True,
+            )
+            seconds = time.perf_counter() - t0
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed to build {src}:\n{log}")
+            os.replace(tmp, path)  # atomic: concurrent builds never collide
     return Built(ctypes.CDLL(path), path, seconds, log)

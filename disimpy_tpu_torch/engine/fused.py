@@ -678,9 +678,11 @@ def epochs(spec, positions, ids, t0, n_t, seed_k, epsilon, max_iter):
     ``positions`` (3, n) float32 true coordinates and ``ids`` (n,) int32
     spin ids (they key each spin's streams) on the spec's device;
     ``seed_k`` the kernel RNG key (simulation seed ^ salt). Yields, per
-    epoch, the per-step true positions (J, 3, n) and the epoch's iter_exc
-    (n,) bool, both in the order of ``positions``. Steps past the window in
-    the trailing partial epoch repeat the last position.
+    epoch, the per-step true positions (J, 3, n), the epoch's iter_exc
+    (n,) bool and the per-step membrane transits (J, n) int32, all in the
+    order of ``positions``, and the number of the epoch's steps inside the
+    window. Steps past the window in the trailing partial epoch repeat the
+    last position and count no transit.
 
     Each epoch sorts the spins by anchor cell (one stable ``torch.sort``,
     :func:`epoch_inputs`), and the kernel's outputs are scattered back by
@@ -690,23 +692,43 @@ def epochs(spec, positions, ids, t0, n_t, seed_k, epsilon, max_iter):
 
     J = spec.resort_every
     for t_base in range(t0, t0 + n_t, J):
+        n_valid = min(t0 + n_t - t_base, J)
         order, shiftvox_s, inputs = epoch_inputs(
             spec, positions, ids, t_base, seed_k
         )
-        pos_steps, exc_s, _ = fused_kernel.fused_epoch(
-            spec, *inputs, t_base, min(t0 + n_t - t_base, J), seed_k,
-            epsilon, max_iter,
+        pos_steps, exc_s, cross_s = fused_kernel.fused_epoch(
+            spec, *inputs, t_base, n_valid, seed_k, epsilon, max_iter,
         )
         steps = torch.empty_like(pos_steps)
         steps[:, :, order] = pos_steps + shiftvox_s[None]
         exc = torch.empty_like(exc_s)
         exc[order] = exc_s
-        yield steps, exc
+        cross = torch.empty_like(cross_s)
+        cross[:, order] = cross_s
+        yield steps, exc, cross, n_valid
         positions = steps[-1]
 
 
+def fold_transits(compartments, cross, n_valid):
+    """Fold one epoch's per-step transits (J, n) into the trackers.
+
+    ``compartments`` is ``(crossings, parity, intra_steps)`` (see
+    ``engine/core.run_window``). A spin dwells step s in the compartment
+    it ends step s in: its parity after step s is the starting parity
+    plus the inclusive prefix sum of its transits. Steps from ``n_valid``
+    on add nothing.
+    """
+    crossings, parity, intra = compartments
+    prefix = torch.cumsum(cross, dim=0, dtype=torch.int32)
+    after = (parity.to(torch.int32)[None, :] + prefix[:n_valid]) & 1
+    return (crossings + prefix[n_valid - 1],
+            (after[-1] != 0),
+            intra + after.sum(dim=0, dtype=torch.int32))
+
+
 def run_window_fused(spec, positions, phases, iter_exc, g_eff, ts, seed32,
-                     epsilon, max_iter, id_base=0):
+                     epsilon, max_iter, id_base=0, track=False,
+                     compartments=None):
     """Advance the ensemble through the window ``ts`` with the fused engine.
 
     ``positions`` (3, n) are true unwrapped coordinates (step-length units),
@@ -718,15 +740,23 @@ def run_window_fused(spec, positions, phases, iter_exc, g_eff, ts, seed32,
     (a split run passes each part's global offset so every spin keeps its
     stream).
 
-    Positions, phases and iter_exc stay in canonical spin order (see
-    :func:`epochs`); each epoch's phase delta is one (n_meas, 3J) x (3J, n)
-    matrix product.
+    With ``track=True``, ``compartments`` is the ``(crossings, parity,
+    intra_steps)`` tuple of ``engine/core.run_window``; the kernel's
+    per-step transit counts are folded into it epoch by epoch
+    (:func:`fold_transits`) and the window returns it as a third element.
 
-    Returns ``(positions, phases, iter_exc)``.
+    Positions, phases, iter_exc and the trackers stay in canonical spin
+    order (see :func:`epochs`); each epoch's phase delta is one
+    (n_meas, 3J) x (3J, n) matrix product.
+
+    Returns ``(positions, phases, iter_exc)`` [, compartments].
     """
     from .core import require_full_fp32
 
     require_full_fp32()
+    if track and (compartments is None or len(compartments) != 3):
+        raise ValueError("track=True needs compartments = (crossings, "
+                         "parity, intra_steps)")
     J = spec.resort_every
     n = positions.shape[1]
     n_t = len(ts)
@@ -740,11 +770,15 @@ def run_window_fused(spec, positions, phases, iter_exc, g_eff, ts, seed32,
     g_pad[:n_t] = g_eff
     g_flat = g_pad.reshape(n_epochs, J, m, 3).permute(0, 2, 1, 3).reshape(
         n_epochs, m, 3 * J)
-    for e, (steps, exc) in enumerate(epochs(
+    for e, (steps, exc, cross, n_valid) in enumerate(epochs(
         spec, positions, ids, int(ts[0]), n_t, int(seed32) ^ spec.seed_salt,
         epsilon, max_iter,
     )):
         iter_exc = iter_exc | exc
         phases = phases + g_flat[e] @ steps.reshape(3 * J, n)
         positions = steps[-1]
+        if track:
+            compartments = fold_transits(compartments, cross, n_valid)
+    if track:
+        return positions, phases, iter_exc, compartments
     return positions, phases, iter_exc

@@ -16,6 +16,7 @@ their sixteen-byte pieces side by side.
 """
 
 import ctypes
+import threading
 import weakref
 
 import torch
@@ -36,6 +37,14 @@ _CHUNK = 4096
 # where the CUDA kernel is launched, so a run can show that its main path
 # went through the kernel.
 launches = 0
+# Guards the counts: the parts of a split run launch from several threads.
+_count_lock = threading.Lock()
+
+
+def _count_launch():
+    global launches
+    with _count_lock:
+        launches += 1
 
 # 64-triangle units folded by the plain version since import (or since a
 # caller reset it): the kernel folds the same units, so this counts the
@@ -139,7 +148,6 @@ def _check(name, t, dtype, shape, device):
 def _fused_epoch_cuda(spec, pos_s, dirs, ids_s, start_s, packed_s,
                       packed2_s, corner_s, t_base, n_valid_steps, seed32,
                       epsilon, max_iter):
-    global launches
     from ._build import load
 
     J = dirs.shape[0]
@@ -187,7 +195,7 @@ def _fused_epoch_cuda(spec, pos_s, dirs, ids_s, start_s, packed_s,
         )
     if rc != 0:
         raise RuntimeError(f"fused_epoch kernel launch failed: CUDA error {rc}")
-    launches += 1
+    _count_launch()
     return out_pos, out_exc, out_cross
 
 

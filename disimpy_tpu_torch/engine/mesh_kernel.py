@@ -19,6 +19,7 @@ kernel after a transpose that the GPU does not need.
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -37,6 +38,14 @@ FLOPS_PER_RECORD = 52
 # where the CUDA kernel is launched, so a run can show that its main path
 # went through the kernel.
 launches = 0
+# Guards the counts: the parts of a split run launch from several threads.
+_count_lock = threading.Lock()
+
+
+def _count_launch():
+    global launches
+    with _count_lock:
+        launches += 1
 
 _SYMBOLS = {torch.float32: "mesh_hit_launch_f32",
             torch.float64: "mesh_hit_launch_f64"}
@@ -99,7 +108,6 @@ def _check(name, t, dtype, shape, device):
 
 
 def _nearest_hit_cuda(spec, r0, direction, rem):
-    global launches
     from ._build import load
 
     n = r0.shape[0]
@@ -150,7 +158,7 @@ def _nearest_hit_cuda(spec, r0, direction, rem):
         )
     if rc != 0:
         raise RuntimeError(f"mesh_hit kernel launch failed: CUDA error {rc}")
-    launches += 1
+    _count_launch()
     return min_d, normal
 
 

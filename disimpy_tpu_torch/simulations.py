@@ -15,8 +15,10 @@ It runs, in float32 or float64, with or without trajectory output:
   go through the classic per-bounce engine, whose collision query is the
   CUDA kernel ``csrc/mesh_hit.cu`` on the halo layout.
 
-Several devices, relaxation and exchange statistics raise
-``NotImplementedError``: they come with a later part of the port.
+Compartment tracking (``exchange_stats=True``, a two-compartment
+``relaxation`` pair) runs on both engines; ``devices=`` splits the spins
+into contiguous parts, one per device, run concurrently
+(``parallel/sharding.py``).
 
 All geometry is rescaled to step-length units. Randomness is the
 counter-based threefry of ``engine/krng.py``, keyed per (seed, step, spin
@@ -24,13 +26,14 @@ id); host-side seeding uses the same numpy RNG calls as the JAX package, so
 analytic and "intra"/"extra" seeds equal its seeds bit for bit.
 """
 
+import dataclasses
 import math
 import warnings
 
 import numpy as np
 import torch
 
-from . import substrates, utils
+from . import parallel, substrates, utils
 from .engine import core as engine_core
 from .engine import krng
 from .engine.specs import CylinderSpec, EllipsoidSpec, FreeSpec, SphereSpec
@@ -454,6 +457,64 @@ def _effective_epsilon(epsilon, scale, extent, n_t, dtype, bounded):
     return max(float(epsilon) * scale, floor)
 
 
+def _relaxation(relaxation, substrate):
+    """Validate ``relaxation``: returns ``(pair, scalar)``, the
+    (T2_intra, T2_extra) pair or None and the uniform T2 or None."""
+    if relaxation is None:
+        return None, None
+    if isinstance(relaxation, (tuple, list)) and len(relaxation) == 2:
+        t2_intra, t2_extra = float(relaxation[0]), float(relaxation[1])
+        if t2_intra <= 0 or t2_extra <= 0:
+            raise ValueError(
+                "Incorrect value (%s) for relaxation" % (relaxation,))
+        if substrate.type not in ("mesh", "sphere", "cylinder", "ellipsoid"):
+            raise ValueError(
+                "Two-compartment relaxation requires a substrate with a "
+                "surface (mesh, sphere, cylinder, or ellipsoid)"
+            )
+        return (t2_intra, t2_extra), None
+    if (isinstance(relaxation, (int, float)) and not isinstance(
+            relaxation, bool) and relaxation > 0):
+        return None, float(relaxation)
+    raise ValueError("Incorrect value (%s) for relaxation" % (relaxation,))
+
+
+def _start_parity(substrate, positions, step_l):
+    """(n,) bool starting compartment of each spin (True = intra).
+
+    Meshes seeded "intra" or "extra" start all in or all out; explicit and
+    "uniform" positions are classified by ray-crossing parity on the host
+    (the mesh frame is the lab frame). Analytic compartments confine their
+    spins (intra); free diffusion has no membrane (extra).
+    """
+    n = positions.shape[1]
+    if substrate.type != "mesh":
+        return np.full(n, substrate.type != "free", dtype=bool)
+    init = substrate.init_pos
+    if isinstance(init, str) and init in ("intra", "extra"):
+        return np.full(n, init == "intra", dtype=bool)
+    if isinstance(init, np.ndarray):
+        points = np.asarray(init, dtype=float)
+    else:
+        points = positions.cpu().numpy().astype(float).T * step_l
+    return _make_intra_classifier(substrate)(points)
+
+
+@dataclasses.dataclass
+class _Part:
+    """One device's contiguous share of the spins and its running state."""
+
+    device: torch.device
+    lo: int
+    hi: int
+    spec: object
+    g_eff: torch.Tensor
+    positions: torch.Tensor
+    phases: torch.Tensor
+    iter_exc: torch.Tensor
+    compartments: tuple = None
+
+
 def _engine_dtype(dtype):
     """Resolve ``dtype`` to torch.float32 or torch.float64."""
     if isinstance(dtype, torch.dtype):
@@ -491,7 +552,7 @@ def simulation(
     devices=None,
     relaxation=None,
     exchange_stats=False,
-    device="cuda",
+    device=None,
 ):
     """Simulate a diffusion-weighted MR experiment and return the signal.
 
@@ -509,7 +570,8 @@ def simulation(
     substrate : disimpy_tpu_torch.substrates._Substrate
         Substrate object describing the microstructure.
     seed : int, optional
-        Seed for random number generation.
+        Seed for random number generation. The same seed gives the same
+        walks on any split over devices.
     traj : str, optional
         Path of a file in which to save walker trajectories (one line per
         time point: ``walker_1_x walker_1_y walker_1_z walker_2_x ...``).
@@ -530,19 +592,37 @@ def simulation(
         collision. Floored internally at the engine dtype's resolution.
     dtype : str, numpy dtype or torch dtype, optional
         Engine precision: "float32" (default) or "float64".
-    devices, relaxation, exchange_stats : optional
-        Not ported yet: anything but the defaults raises
-        NotImplementedError.
+    devices : None, int, or sequence of devices, optional
+        Split the spins over several devices: an int k takes the first k
+        CUDA devices (raising if fewer exist), a sequence of devices or
+        device strings takes exactly those (repeats allowed, e.g.
+        ``["cuda:0", "cuda:0"]``). Each device runs a contiguous part of
+        the spins in its own host thread; the signals are summed on the
+        host. None (default) runs on ``device``.
+    relaxation : float or (T2_intra, T2_extra) pair, optional
+        T2 relaxation weighting. A single T2 (s) scales the signal by
+        ``exp(-n_t * dt / T2)``. A pair (substrates with a surface: mesh,
+        sphere, cylinder, ellipsoid) weights each spin by
+        ``exp(-(dt / T2_intra) k - (dt / T2_extra) (n_t - k))``, where
+        ``k`` is the number of steps it ended inside the surface, tracked
+        through its membrane transits.
+    exchange_stats : bool, optional
+        If True, additionally return a dict of per-walker exchange
+        statistics: ``crossings`` (membrane transits), ``intra_steps``
+        (steps dwelt inside) and ``intra_fraction``, after the other
+        return values.
     device : str or torch.device, optional
         Where the simulation runs ("cuda" by default). A CUDA device
-        without a GPU raises; there is no CPU fallback.
+        without a GPU raises; there is no CPU fallback. Beside
+        ``devices`` it must name the same device as every entry.
 
     Returns
     -------
     signal : numpy.ndarray
         Simulated signal per measurement, ``Re sum_spins exp(i phi)``; or
         per-walker signals if ``all_signals``; with final walker positions
-        as a tuple if ``final_pos``.
+        as a tuple if ``final_pos``; with the exchange-statistics dict last
+        if ``exchange_stats``.
     """
     # --- Validation (parity with the JAX package and the reference).
     if not isinstance(n_walkers, int) or n_walkers <= 0:
@@ -573,22 +653,13 @@ def simulation(
         raise ValueError("Incorrect value (%s) for max_iter" % max_iter)
     if not isinstance(exchange_stats, bool):
         raise ValueError("Incorrect value (%s) for exchange_stats" % exchange_stats)
+    relax_pair, relax_scalar = _relaxation(relaxation, substrate)
+    # Per-spin compartment tracking rides the time loop; needed for
+    # exchange statistics and for two-compartment relaxation.
+    track = exchange_stats or relax_pair is not None
     dtype = _engine_dtype(dtype)
-
-    # --- What this part of the port does not run yet.
-    later = "slice 3 of the port"
-    if devices is not None:
-        raise NotImplementedError(f"devices= (several GPUs) comes with {later}")
-    if relaxation is not None or exchange_stats:
-        raise NotImplementedError(
-            f"relaxation and exchange_stats come with {later}"
-        )
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' but torch finds no CUDA GPU; pass device='cpu' "
-            "to run the plain-torch engine on the CPU"
-        )
+    devs = parallel.resolve_devices(devices, device)
+    home = devs[0]
     engine_core.require_full_fp32()
 
     if not quiet:
@@ -616,7 +687,7 @@ def simulation(
     if substrate.type == "mesh":
         mesh_engine = engine_config.mesh_engine(dtype, needs_traj=bool(traj))
     spec, positions, frame_to_lab, extent, mesh_engine = _prepare_substrate(
-        substrate, n_walkers, seed, scale, dtype, quiet, mesh_engine, device
+        substrate, n_walkers, seed, scale, dtype, quiet, mesh_engine, home
     )
     kind = substrate.type
 
@@ -627,7 +698,7 @@ def simulation(
     if frame_to_lab is not None:
         # g . r_lab = g . (A r_frame) = (A^T g) . r_frame
         g_eff = g_eff @ frame_to_lab
-    g_eff_dev = torch.as_tensor(g_eff, dtype=dtype).to(device)
+    g_eff_dev = torch.as_tensor(g_eff, dtype=dtype).to(home)
 
     bounded = kind in ("sphere", "ellipsoid") or (
         kind == "mesh" and not substrate.periodic
@@ -640,11 +711,35 @@ def simulation(
     # classic engine, whose per-bounce query has no drift budget.
     if mesh_engine == "fused" and eps_eff > spec.eps_budget:
         mesh_engine = "classic"
-        spec = _classic_mesh_spec(substrate, scale, dtype, device)
+        spec = _classic_mesh_spec(substrate, scale, dtype, home)
 
-    phases = torch.zeros((n_meas, n_walkers), dtype=dtype, device=device)
-    iter_exc = torch.zeros(n_walkers, dtype=torch.bool, device=device)
+    parity0 = (_start_parity(substrate, positions, step_l) if track
+               else None)
     seed32 = seed & 0x7FFFFFFF
+
+    # One part per device: contiguous spins, ids offset by the part's
+    # first spin, so every spin walks as it does in a single run.
+    parts = []
+    ranges = parallel.split_ranges(n_walkers, len(devs))
+    for dev, (lo, hi) in zip(devs, ranges):
+        if hi == lo:
+            continue
+        m = hi - lo
+        compartments = None
+        if track:
+            compartments = (
+                torch.zeros(m, dtype=torch.int32, device=dev),
+                torch.as_tensor(parity0[lo:hi]).to(dev),
+                torch.zeros(m, dtype=torch.int32, device=dev),
+            )
+        parts.append(_Part(
+            device=dev, lo=lo, hi=hi, spec=parallel.spec_to(spec, dev),
+            g_eff=g_eff_dev.to(dev),
+            positions=positions[:, lo:hi].to(dev).contiguous(),
+            phases=torch.zeros((n_meas, m), dtype=dtype, device=dev),
+            iter_exc=torch.zeros(m, dtype=torch.bool, device=dev),
+            compartments=compartments,
+        ))
 
     def to_lab(pos_scaled):
         """(3, n) engine positions -> (n, 3) lab-frame positions (metres)."""
@@ -656,10 +751,18 @@ def simulation(
     if mesh_engine == "fused":
         from .engine import fused
 
-        positions, phases, iter_exc = fused.run_window_fused(
-            spec, positions, phases, iter_exc, g_eff_dev, range(n_t),
-            seed32, eps_eff, max_iter,
-        )
+        def fused_part(part):
+            out = fused.run_window_fused(
+                part.spec, part.positions, part.phases, part.iter_exc,
+                part.g_eff, range(n_t), seed32, eps_eff, max_iter,
+                id_base=part.lo, track=track,
+                compartments=part.compartments,
+            )
+            part.positions, part.phases, part.iter_exc = out[:3]
+            if track:
+                part.compartments = out[3]
+
+        parallel.run_parts(fused_part, [(p,) for p in parts])
     else:
         if traj:
             _write_traj(traj, "w", to_lab(positions))
@@ -668,34 +771,81 @@ def simulation(
             window = max(1, min(n_t, int(3e7) // max(3 * n_walkers, 1)))
         else:
             window = n_t
+
+        def classic_part(part, t0, t1):
+            ids = part.lo + torch.arange(part.hi - part.lo, dtype=torch.int32,
+                                         device=part.device)
+            out = engine_core.run_window(
+                kind, part.spec, part.positions, part.phases, part.iter_exc,
+                part.g_eff[t0:t1], range(t0, t1), seed32, eps_eff, max_iter,
+                collect_positions=bool(traj),
+                track="exchange" if track else None,
+                compartments=part.compartments, ids=ids,
+            )
+            part.positions, part.phases, part.iter_exc = out[0]
+            if track:
+                part.compartments = out[2]
+            return out[1]
+
         for t0 in range(0, n_t, window):
             t1 = min(t0 + window, n_t)
-            (positions, phases, iter_exc), collected = engine_core.run_window(
-                kind, spec, positions, phases, iter_exc, g_eff_dev[t0:t1],
-                range(t0, t1), seed32, eps_eff, max_iter,
-                collect_positions=bool(traj),
-            )
+            collected = parallel.run_parts(
+                classic_part, [(p, t0, t1) for p in parts])
             if traj:
-                for step_positions in collected:
+                steps = torch.cat([c.cpu() for c in collected], dim=2)
+                for step_positions in steps:
                     _write_traj(traj, "a", to_lab(step_positions))
             if not quiet and n_t > window:
                 print(f"\r{np.round(t1 / n_t * 100, 1)}%", end="", flush=True)
 
-    # Signal reduction on the device; the exceeded-walker indices are
-    # fetched only when a walker overflowed.
-    if bool(iter_exc.any()):
+    # Signal reduction on each part's device; the exceeded-walker indices
+    # are fetched only when a walker overflowed.
+    if any(bool(p.iter_exc.any()) for p in parts):
+        iter_exc = torch.cat([p.iter_exc.cpu() for p in parts]).numpy()
         warnings.warn(
             "Maximum number of iterations was exceeded in the intersection "
-            + "check algorithm for walkers %s"
-            % np.where(iter_exc.cpu().numpy())[0]
+            + "check algorithm for walkers %s" % np.where(iter_exc)[0]
         )
+
+    def signal_of(part):
+        # Relaxation weighting: per-spin weights from the dwell steps.
+        weights = None
+        if relax_pair is not None:
+            k_intra = part.compartments[2].to(dtype)
+            lw = (dt / relax_pair[0]) * k_intra + (dt / relax_pair[1]) * (
+                float(n_t) - k_intra
+            )
+            weights = torch.exp(-lw)
+        if all_signals:
+            out = engine_core.per_spin_signal(part.phases, part.iter_exc,
+                                              weights=weights)
+        else:
+            out = engine_core.reduce_signal(part.phases, part.iter_exc,
+                                            weights=weights)
+        return out.cpu().numpy().astype(float)
+
+    per_part = [signal_of(p) for p in parts]
     if all_signals:
-        signals = engine_core.per_spin_signal(phases, iter_exc)
+        signals = np.concatenate(per_part, axis=1)
     else:
-        signals = engine_core.reduce_signal(phases, iter_exc)
-    signals = signals.cpu().numpy().astype(float)
+        signals = per_part[0]
+        for other in per_part[1:]:
+            signals = signals + other
+    if relax_scalar is not None:
+        signals = signals * np.exp(-n_t * dt / relax_scalar)
     if not quiet:
         print("\rSimulation finished")
+    ret = [signals]
     if final_pos:
-        return signals, to_lab(positions)
-    return signals
+        ret.append(np.concatenate([to_lab(p.positions) for p in parts]))
+    if exchange_stats:
+        crossings, _, intra_steps = (
+            np.concatenate([p.compartments[k].cpu().numpy() for p in parts])
+            for k in range(3)
+        )
+        ret.append({
+            "crossings": crossings,
+            "intra_steps": intra_steps,
+            "intra_fraction": intra_steps / float(n_t),
+        })
+    return tuple(ret) if len(ret) > 1 else signals

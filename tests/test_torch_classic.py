@@ -610,11 +610,22 @@ def test_free_trajectories_format(tmp_path):
 
 
 def test_run_window_rejects_tracking():
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        core.run_window("free", specs.FreeSpec(), torch.zeros((3, 2)),
-                        torch.zeros((1, 2)), torch.zeros(2, dtype=torch.bool),
-                        torch.zeros((1, 1, 3)), range(1), 0, 1e-6, 10,
-                        track="exchange")
+    # Tracking runs (tests/test_torch_exchange.py); a malformed request for
+    # it is a ValueError, as simulation()'s malformed arguments are.
+    args = ("free", specs.FreeSpec(), torch.zeros((3, 2)),
+            torch.zeros((1, 2)), torch.zeros(2, dtype=torch.bool),
+            torch.zeros((1, 1, 3)), range(1), 0, 1e-6, 10)
+    comp = (torch.zeros(2, dtype=torch.int32), torch.zeros(2, dtype=torch.bool),
+            torch.zeros(2, dtype=torch.int32))
+    for bad in (dict(track="exchange"), dict(track="exchange",
+                                             compartments=comp[:2]),
+                dict(track="dwell", compartments=comp), dict(track=True)):
+        with pytest.raises(ValueError):
+            core.run_window(*args, **bad)
+    _, _, (crossings, parity, intra) = core.run_window(
+        *args, track="exchange", compartments=comp)
+    assert crossings.tolist() == [0, 0] and intra.tolist() == [0, 0]
+    assert not parity.any()
 
 
 def test_geometry_row_and_column_layouts_agree():

@@ -238,7 +238,10 @@ def test_simulation_validation():
 
 
 def test_unported_paths_raise(oracles_dir):
-    # What slice 3 brings; everything else runs (tests/test_torch_classic.py).
+    # Slice 3 runs relaxation, exchange_stats and devices; what is left to
+    # raise are the JAX package's ValueErrors for malformed values of them
+    # (tests/test_exchange.py::test_relaxation_validation) and for devices
+    # that are unknown, missing or in conflict with ``device``.
     bvals = np.array([1e9])
     gradient, dt = gradients.pgse(10e-3, 20e-3, 20, bvals, np.eye(3)[:1])
     vertices, faces = _cylinder_mesh(oracles_dir)
@@ -246,13 +249,20 @@ def test_unported_paths_raise(oracles_dir):
                            n_sv=np.array([10, 10, 10]))
     ok = dict(n_walkers=10, diffusivity=D, gradient=gradient, dt=dt,
               substrate=substrates.free(), quiet=True, device="cpu")
+    missing = torch.cuda.device_count() + 1
     for bad in (
-        dict(devices=2), dict(relaxation=0.05), dict(exchange_stats=True),
-        dict(substrate=mesh, devices=2),
-        dict(substrate=substrates.sphere(5e-6), relaxation=(0.05, 0.08)),
-        dict(substrate=mesh, exchange_stats=True),
+        dict(relaxation=(30e-3, 100e-3)), dict(relaxation=-1.0),
+        dict(relaxation=(1.0, 2.0, 3.0)), dict(relaxation=(0.05, -0.08)),
+        dict(relaxation=True), dict(relaxation="0.05"),
+        dict(substrate=mesh, relaxation=(0.05, 0.0)),
+        dict(exchange_stats="yes"), dict(substrate=mesh, exchange_stats=1),
+        dict(devices=0), dict(devices=-1), dict(devices=True),
+        dict(devices=[]), dict(devices=["tpu:0"]), dict(devices="nodev"),
+        dict(devices=missing, device=None),
+        dict(devices=[f"cuda:{missing}"], device=None),
+        dict(devices=["cpu", "cpu"], device="cuda:0"),
     ):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError):
             simulations.simulation(**{**ok, **bad})
 
 
