@@ -9,7 +9,8 @@ Phases, one line each (any failure raises, so the exit code is non-zero):
 
 1. the card (name and power limit from nvidia-smi), torch and CUDA
    versions, and the builds of ``disimpy_tpu_torch/csrc/fused_epoch.cu``
-   and ``csrc/mesh_hit.cu`` (one nvcc each, started together);
+   and ``csrc/mesh_hit.cu`` (one nvcc each, started together), with the
+   epoch kernel's default variant held to 64 registers and no spills;
 2. the kernel's device threefry against ``engine/krng.py``, bit for bit;
 3. the epoch kernel against its plain torch version on the bench bundle's
    pack (J = 4, perm 0 and 0.5; 16,384 sorted spins with equal iter_exc
@@ -17,9 +18,13 @@ Phases, one line each (any failure raises, so the exit code is non-zero):
    spins diverge (positions more than 1e-4 step lengths apart), both
    times, the kernel's bound from the units the plain version folds, and
    the fold-lane efficiency of one thread, four and eight lanes per spin
-   from the plain version's per-pass prefix counts; then a crafted unit
-   with equal t at two sublanes and across two units, where kernel and
-   plain version must give the same positions bit for bit;
+   from the plain version's per-pass prefix counts; the counting variant
+   beside the default one (its time; its outputs equal bit for bit; per
+   spin the units folded and bounce passes, per warp the units issued,
+   equal to the plain version's on every spin and warp that does not
+   diverge); then a crafted unit with equal t at two sublanes and across
+   two units, where kernel and plain version must give the same positions
+   bit for bit;
 4. free diffusion through ``simulation()`` against exp(-bD) (<= 0.01);
 5. the closed cylinder mesh through ``simulation()`` against the vendored
    MISST signal (<= 0.015), with the leak checks of the JAX package's test;
@@ -78,7 +83,26 @@ Phases, one line each (any failure raises, so the exit code is non-zero):
    positions, crossings and intra steps equal per spin, signals within
    1e-6; and ``sweeps.sweep_sphere_radii`` (2, 4, 6, 8 um; 1e4 spins x
    1000 steps) against its four standalone runs (rtol 1e-6, atol 1e-5),
-   with both times.
+   with both times;
+15. the PARITY_r05 checks that no phase above runs, through
+   ``scripts/parity_torch.py``: the closed cylinder mesh over {periodic} x
+   {padding} x {n_sv} against MISST (<= 0.015) with its radial leak check
+   (<= 1e-3), and the neuron mesh's leak check at dt 1e-5 (no spin outside
+   the voxel; the script runs the other two step sizes, whose host packs
+   take minutes), one line per run with its engine, pack, seeding and wall
+   times, and the three n_sv runs of each (periodic, padding) pair
+   compared bit for bit; and one epoch of the kernel against its plain
+   version, as in phase 3, on the non-periodic padded run's pack (65,536
+   uniform spins, so the boundary cells' voxel-wall rows are folded);
+16. bench.py's neuron workload (the 29,688-triangle neuron mesh,
+   periodic, 524,288 spins x 150 steps x 32 measurements, uniform seeding)
+   through ``simulation()``: the cold pack, one epoch of the kernel
+   against its plain version on its table as in phase 3, a warm-up and a
+   timed run, kernel launches, finite signals; then 32-step runs with the
+   kernel's counting variant (``config.fused_count_units``) on the neuron
+   and on the bundle: triangles tested and bounce passes per spin-step and
+   the fold-lane efficiency, each run equal bit for bit to the same run
+   without counting.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the rest
@@ -111,6 +135,13 @@ MAX_MISCLASSIFIED = 1e-5
 # the larger of its bytes over HBM_RATE and its operations over the peak.
 HBM_RATE = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# K1's time per epoch at 524,288 spins, perm 0, measured before its
+# counting variant was added (NVIDIA H100 80GB HBM3, 700 W): phase 3 shows
+# whether the default variant kept it.
+K1_MS_BEFORE = (2.04, 2.17)
+# K1's default variant's registers per thread (ptxas, sm_90a), checked in
+# phase 1: the counting variant must not change them or make it spill.
+K1_REGISTERS = 64
 
 
 def bound(n_bytes, flops, dtype="float32"):
@@ -146,11 +177,40 @@ def card():
     with ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(_build.load, names))
     for name, built in zip(names, builds):
+        # Each kernel's entry line (mangled name: fused_epoch_kernel<true>
+        # is the counting variant, "ILb1E") before its registers and spills.
         regs = [ln.strip() for ln in built.log.splitlines()
-                if "registers" in ln or "spill" in ln]
+                if "registers" in ln or "spill" in ln
+                or "Compiling entry" in ln]
         say(f"build: csrc/{name}.cu in {built.seconds:.2f} s -> "
             f"{os.path.relpath(built.path, REPO)}; ptxas: {' | '.join(regs)}")
+    _check_k1_registers(builds[0].log)
     return smi
+
+
+def _check_k1_registers(log):
+    """K1's default variant (fused_epoch_kernel<false>) keeps the registers
+    it had before the counting variant existed, with no spills."""
+    import re
+
+    lines = log.splitlines()
+    first = next(i for i, ln in enumerate(lines)
+                 if "Compiling entry" in ln and "fused_epoch_kernelILb0E" in ln)
+    entry = []
+    for ln in lines[first + 1:]:
+        if "Compiling entry" in ln:
+            break
+        entry.append(ln)
+    entry = " ".join(entry)
+    spills = [int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                         entry)]
+    regs = [int(v) for v in re.findall(r"Used (\d+) registers", entry)]
+    if len(spills) != 2 or any(spills) or regs != [K1_REGISTERS]:
+        raise AssertionError(
+            f"fused_epoch_kernel<false>: spill stores/loads {spills}, "
+            f"registers {regs} (expected no spills, {K1_REGISTERS})")
+    say(f"fused_epoch_kernel<false>: {K1_REGISTERS} registers, no spills, as "
+        "before the counting variant existed")
 
 
 def threefry_check():
@@ -371,10 +431,10 @@ def _fold_trace(run):
 
 
 def _lane_efficiency(trace, ids_s, spins_per_warp):
-    """Units folded over the units a warp of ``spins_per_warp`` sorted
-    spins issues: per pass a warp folds its spins' largest prefix count,
+    """(units folded, units issued) by warps of ``spins_per_warp`` sorted
+    spins: per pass a warp folds its spins' largest prefix count,
     spins_per_warp times over (32 for one thread per spin, 4 for groups
-    of 8 lanes)."""
+    of 8 lanes). Folded over issued is the fold-lane efficiency."""
     n = ids_s.shape[0]
     pos_of = torch.empty_like(ids_s, dtype=torch.long)
     pos_of[ids_s.long()] = torch.arange(n, device=ids_s.device)
@@ -386,26 +446,120 @@ def _lane_efficiency(trace, ids_s, spins_per_warp):
         most.scatter_reduce_(0, warp, cnt.long(), "amax")
         useful += int(cnt.sum())
         issued += int(most.sum())
-    return useful / (spins_per_warp * issued)
+    return useful, spins_per_warp * issued
+
+
+def _count_check(counts, plain_counts, divergent, trace_issued):
+    """The counting variant against the plain version's counts: per-spin
+    units and passes equal on every spin that does not diverge, per-warp
+    issued units equal on every warp without a divergent spin, and the
+    plain version's issued total equal to the one its fold trace gives.
+    Returns (units, passes, issued) of the kernel, summed."""
+    from disimpy_tpu_torch.engine import fused_kernel
+
+    (ku, kpass, kiss), (pu, ppass, piss) = counts, plain_counts
+    spins_off = int(((ku != pu) | (kpass != ppass))[~divergent].sum())
+    warp_div = torch.zeros_like(kiss, dtype=torch.bool)
+    warp_div[divergent.nonzero()[:, 0] // fused_kernel.SPINS_PER_WARP] = True
+    warps_off = int((kiss != piss)[~warp_div].sum())
+    plain_issued = int(piss.sum(dtype=torch.int64))
+    if spins_off or warps_off or plain_issued != trace_issued:
+        raise AssertionError(
+            f"counting variant: {spins_off} non-divergent spins with other "
+            f"units or passes, {warps_off} warps without a divergent spin "
+            f"with other issued units; plain issued {plain_issued}, from its "
+            f"fold trace {trace_issued}")
+    return tuple(int(c.sum(dtype=torch.int64)) for c in counts)
+
+
+def _epoch_vs_plain(spec, n, eps, exact=False):
+    """One epoch of the kernel on ``n`` uniform spins of ``spec``, sorted
+    as the driver sorts them, against its plain version on the same
+    inputs, and the counting variant against the default one and the
+    plain version's counts.
+
+    A spin whose positions differ by more than 1e-4 step lengths counts as
+    divergent, as does one whose iter_exc or transit count differs (with
+    ``exact`` those must be equal); at most 0.5% of the spins may diverge.
+    The counting variant must give the default variant's outputs bit for
+    bit and the plain version's counts (:func:`_count_check`). Returns the
+    times, errors, counts, fold-lane efficiencies and bound.
+    """
+    from disimpy_tpu_torch.engine import fused, fused_kernel
+
+    J = spec.resort_every
+    inputs, seed_k = _sorted_epoch_inputs(spec, n, seed=11)
+    args = (spec, *inputs, 0, J, seed_k, eps, 1000)
+    ms, (kp, ke, kc) = _cuda_ms(lambda: fused_kernel.fused_epoch(*args), 20)
+    count_ms, (cp, ce, cc, counts) = _cuda_ms(
+        lambda: fused_kernel.fused_epoch(*args, count=True), 20)
+    if not (torch.equal(kp, cp) and torch.equal(ke, ce)
+            and torch.equal(kc, cc)):
+        raise AssertionError("the counting variant changes the epoch's "
+                             "outputs")
+    (plain_ms, (pp, pe, pc, plain_counts)), trace = _fold_trace(
+        lambda: _cuda_ms(lambda: fused_kernel.fused_epoch_reference(
+            *args, count=True), 1))
+    units = int(plain_counts[0].sum(dtype=torch.int64))
+    lanes = {w: _lane_efficiency(trace, inputs[2], w) for w in (32, 8, 4)}
+    # Bytes: the whole table read once, each spin's inputs (pos 3, dirs 3J,
+    # corner 3 floats, four int32 words) and outputs (positions 3J floats,
+    # J transit counts, one exc byte).
+    n_bytes = (spec.table.numel() * 4 + n * (4 * (6 + 3 * J) + 16)
+               + n * (16 * J + 1))
+    flops = units * fused.UNIT_TRIS * fused_kernel.FLOPS_PER_TRIANGLE
+    bound_ms, bound_by = bound(n_bytes, flops)
+    err = (kp - pp).abs().amax(dim=(0, 1))
+    counts_differ = (ke != pe) | (kc != pc).any(dim=0)
+    if exact and bool(counts_differ.any()):
+        raise AssertionError("iter_exc or transit counts differ")
+    divergent = (err > 1e-4) | counts_differ
+    frac_div = float(divergent.float().mean())
+    if frac_div > 0.005:
+        raise AssertionError(f"{frac_div:.4%} of {n} spins diverge")
+    k_units, k_passes, k_issued = _count_check(
+        counts, plain_counts, divergent, lanes[4][1])
+    return dict(max_abs_err=float(err.max()), ms=ms, count_ms=count_ms,
+                plain_ms=plain_ms, divergent=frac_div, bound_ms=bound_ms,
+                bound_by=bound_by, n_bytes=n_bytes, flops=flops, units=units,
+                changed=int(counts_differ.sum()), transits=(int(kc.sum()),
+                                                             int(pc.sum())),
+                lanes={w: u / i for w, (u, i) in lanes.items()},
+                counts=(k_units, k_passes, k_issued))
+
+
+def _say_epoch(label, r):
+    """One line of :func:`_epoch_vs_plain`'s result."""
+    k_units, k_passes, k_issued = r["counts"]
+    say(f"{label}: {r['changed']} spins with other iter_exc or transits "
+        f"(kernel {r['transits'][0]}, plain {r['transits'][1]}); divergent "
+        f"fraction {r['divergent']:.6f} (limit 0.005); max |err| "
+        f"{r['max_abs_err']:.3g} step lengths; kernel {r['ms']:.4f} ms, "
+        f"counting variant {r['count_ms']:.4f} ms (outputs equal bit for "
+        f"bit), plain {r['plain_ms']:.2f} ms per epoch; {r['units']} units "
+        f"folded = {r['flops']:.4g} flops, {r['n_bytes'] / 1e6:.1f} MB -> "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); fold-lane "
+        f"efficiency from the plain version's prefix counts: "
+        f"{r['lanes'][32]:.4f} one thread per spin, {r['lanes'][8]:.4f} four "
+        f"lanes per spin, {r['lanes'][4]:.4f} eight lanes per spin (the "
+        f"kernel's); the counting variant's: {k_units} units folded, "
+        f"{k_passes} bounce passes, {k_issued} issued -> efficiency "
+        f"{k_units / k_issued:.4f}; per-spin units and passes and per-warp "
+        "issued units equal to the plain version's on every spin and warp "
+        "that does not diverge")
 
 
 def kernel_vs_plain(bench):
-    """Phase 3: the kernel against its plain version on the bench pack,
-    at 16,384 sorted spins and at the main path's 524,288.
-
-    At 16,384 spins iter_exc and the transit counts must be equal. At the
-    full size a spin whose iter_exc or transit count differs counts as
-    divergent, as does one whose positions differ by more than 1e-4 step
-    lengths; at both sizes at most 0.5% of the spins may diverge. Then
+    """Phase 3: the kernel against its plain version on the bench pack
+    (:func:`_epoch_vs_plain`), at 16,384 sorted spins, where iter_exc and
+    the transit counts must be equal, and at the main path's 524,288; then
     the crafted tie unit (:func:`fused_tie_case`).
     """
     from dataclasses import replace
 
-    from disimpy_tpu_torch.engine import fused, fused_kernel
     from disimpy_tpu_torch.simulations import _effective_epsilon
 
     base = bench["spec"]
-    J = base.resort_every
     scale = 1.0 / bench["step_l"]
     eps = _effective_epsilon(
         1e-13, scale, float(np.max(bench["substrate"].voxel_size)) * scale,
@@ -414,47 +568,17 @@ def kernel_vs_plain(bench):
     for n in (16384, 524288):
         for perm in (0.0, 0.5):
             spec = replace(base, perm_prob=torch.tensor(perm, device="cuda"))
-            inputs, seed_k = _sorted_epoch_inputs(spec, n, seed=11)
-            args = (spec, *inputs, 0, J, seed_k, eps, 1000)
-            ms, (kp, ke, kc) = _cuda_ms(
-                lambda: fused_kernel.fused_epoch(*args), 20)
-            fused_kernel.units_folded = 0
-            (plain_ms, (pp, pe, pc)), trace = _fold_trace(lambda: _cuda_ms(
-                lambda: fused_kernel.fused_epoch_reference(*args), 1))
-            units = fused_kernel.units_folded
-            lanes = {w: _lane_efficiency(trace, inputs[2], w)
-                     for w in (32, 8, 4)}
-            # Bytes: the whole table read once, each spin's inputs (pos 3,
-            # dirs 3J, corner 3 floats, four int32 words) and outputs
-            # (positions 3J floats, J transit counts, one exc byte).
-            n_bytes = (spec.table.numel() * 4 + n * (4 * (6 + 3 * J) + 16)
-                       + n * (16 * J + 1))
-            flops = units * fused.UNIT_TRIS * fused_kernel.FLOPS_PER_TRIANGLE
-            bound_ms, bound_by = bound(n_bytes, flops)
-            err = (kp - pp).abs().amax(dim=(0, 1))
-            counts_differ = (ke != pe) | (kc != pc).any(dim=0)
-            if n == 16384 and bool(counts_differ.any()):
-                raise AssertionError(
-                    f"perm {perm}: iter_exc or transit counts differ")
-            frac_div = float(((err > 1e-4) | counts_differ).float().mean())
-            max_err = float(err.max())
-            if frac_div > 0.005:
-                raise AssertionError(
-                    f"perm {perm}: {frac_div:.4%} of {n} spins diverge")
-            say(f"kernel vs plain, perm {perm}: {n} spins x J={J}; "
-                f"{int(counts_differ.sum())} spins with other iter_exc or "
-                f"transits (kernel {int(kc.sum())}, plain {int(pc.sum())}); "
-                f"divergent fraction {frac_div:.6f}; max |err| {max_err:.3g} "
-                f"step lengths; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms "
-                f"per epoch; {units} units folded = {flops:.4g} flops, "
-                f"{n_bytes / 1e6:.1f} MB -> bound {bound_ms:.4f} ms "
-                f"({bound_by}); fold-lane efficiency from the plain "
-                f"version's prefix counts: {lanes[32]:.4f} one thread per "
-                f"spin, {lanes[8]:.4f} four lanes per spin, {lanes[4]:.4f} "
-                "eight lanes per spin (the kernel's)")
-            record[n, perm] = dict(max_abs_err=max_err, ms=ms,
-                                   plain_ms=plain_ms, divergent=frac_div,
-                                   bound_ms=bound_ms, bound_by=bound_by)
+            r = _epoch_vs_plain(spec, n, eps, exact=n == 16384)
+            _say_epoch(f"kernel vs plain, perm {perm}: {n} spins x "
+                       f"J={spec.resort_every}", r)
+            record[n, perm] = r
+    lo, hi = K1_MS_BEFORE
+    k1 = record[524288, 0.0]["ms"]
+    say(f"default variant at 524,288 spins, perm 0: {k1:.4f} ms per epoch, "
+        f"{'inside' if lo <= k1 <= hi else 'OUTSIDE'} the {lo}-{hi} ms it "
+        "took before the counting variant existed (H100 80GB HBM3, 700 W; a "
+        "card with a lower power limit runs slower, so this is reported, "
+        "not checked)")
     _fused_tie_check()
     return record
 
@@ -1389,12 +1513,181 @@ def split_and_sweeps():
         raise AssertionError("a sweep row differs from its standalone run")
 
 
+def parity_matrix():
+    """Phase 15: the PARITY_r05 checks no other phase runs, through
+    scripts/parity_torch.py: the closed cylinder mesh over {periodic} x
+    {padding} x {n_sv} against MISST with its radial leak checks (all 24,
+    two of them phase 5's), and the neuron leak check at dt 1e-5 (the
+    cheapest neuron pack; parity_torch.py runs all three step sizes).
+    Every check must meet its threshold, every fused run must launch the
+    epoch kernel, and each (periodic, padding) pair's three n_sv runs are
+    compared bit for bit. One epoch of the kernel is held to its plain
+    version on the non-periodic padded run's pack (:func:`_epoch_vs_plain`).
+    """
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import parity_torch
+
+    from disimpy_tpu_torch.simulations import _effective_epsilon
+
+    parity = parity_torch.Parity("cuda")
+    parity.mesh()
+    # One epoch of the kernel against its plain version on the pack the
+    # non-periodic padded run used: uniform spins fill the boundary cells,
+    # whose rows hold the voxel-wall triangles.
+    key = parity_torch.mesh_key(False, 1, parity_torch.MESH_NSV[-1])
+    sub = parity.substrates[key]
+    (_, scale, *_), spec = next((k, v) for k, v in sub._accel_cache.items()
+                                if k[0] == "fused-torch")
+    eps = _effective_epsilon(1e-13, scale,
+                             float(np.max(sub.voxel_size)) * scale, 1000,
+                             torch.float32, True)
+    _say_epoch(f"kernel vs plain, {key} pack: 65536 uniform spins x "
+               f"J={spec.resort_every}", _epoch_vs_plain(spec, 65536, eps))
+    parity.neuron(dts=(1e-5,))
+    failed = [k for k, v in parity.results.items() if not v["pass"]]
+    idle = [k for k, v in parity.results.items()
+            if v.get("engine") == "fused" and v["launches"]["fused_epoch"] < 1]
+    for pair, diff in parity.meta["nsv_signal_max_abs_diff"].items():
+        say(f"parity matrix, {pair}: the signals of the n_sv runs "
+            f"{', '.join('x'.join(map(str, v)) for v in parity_torch.MESH_NSV)}"
+            + (" are equal bit for bit" if diff == 0 else
+               f" differ by up to {diff:.3g} (of {parity.n(1e4)} spins): the "
+               "fused pack does not depend on n_sv, so only the seeding's "
+               "column candidates could differ"))
+    say(f"parity matrix: {len(parity.results)} checks, "
+        f"{len(parity.results) - len(failed)} within their PARITY_r05 "
+        "thresholds")
+    if failed or idle:
+        raise AssertionError(f"parity checks failed: {failed}; fused runs "
+                             f"without kernel launches: {idle}")
+    return parity.results
+
+
+def _neuron_substrate():
+    """bench.py's neuron workload substrate: the reference's neuron mesh
+    (29,688 triangles), periodic, the default n_sv."""
+    from disimpy_tpu_torch import substrates
+
+    with open(os.path.join(ORACLES, "neuron-model.pkl"), "rb") as f:
+        mesh = pickle.load(f)
+    return substrates.mesh(np.asarray(mesh["vertices"], dtype=np.float64),
+                           np.asarray(mesh["faces"]), periodic=True,
+                           quiet=True)
+
+
+def _counted_run(sub, n, n_t, dt, seed):
+    """A run of n spins x n_t steps (bench.py's 32-measurement waveform),
+    with the kernel's counting variant and without: (the counts, kernel
+    launches of the counted run, whether positions and signals are equal
+    bit for bit)."""
+    from disimpy_tpu_torch import gradients, simulations
+    from disimpy_tpu_torch.engine import config, fused_kernel
+
+    bvals = np.linspace(1e8, 3e9, 32)
+    bvecs = np.tile(np.array([[1.0, 0.0, 0.0]]), (32, 1))
+    gradient, _ = gradients.pgse(1e-3, dt * n_t - 1e-3, n_t, bvals, bvecs)
+    out = {}
+    for counting in (True, False):
+        config.fused_count_units = counting
+        fused_kernel.launches = 0
+        try:
+            out[counting] = simulations.simulation(
+                n, DIFFUSIVITY, gradient, dt, sub, seed=seed, quiet=True,
+                final_pos=True, device="cuda")
+        finally:
+            config.fused_count_units = False
+        if counting:
+            diag = list(simulations._STREAM_DIAG)
+            launched = fused_kernel.launches
+    same = all(np.array_equal(a, b) for a, b in zip(out[True], out[False]))
+    return diag, launched, same
+
+
+def neuron_workload(bench, smi):
+    """Phase 16: bench.py's neuron workload through simulation(): the cold
+    pack, one epoch of the kernel against its plain version on its table
+    (:func:`_epoch_vs_plain`), a warm-up and a timed run of 524,288 spins x
+    150 steps x 32
+    measurements, kernel launches, finite signals; then 32-step counting
+    runs on the neuron and on the bundle (bench.py --stream), each equal
+    bit for bit to the same run without counting."""
+    from disimpy_tpu_torch import simulations
+    from disimpy_tpu_torch.engine import fused_kernel
+
+    n, n_t, dt = 524288, 150, bench["dt"]
+    step_l = bench["step_l"]
+    sub = _neuron_substrate()
+    t0 = time.perf_counter()
+    spec = simulations._fused_spec(sub, n, 1.0 / step_l, torch.device("cuda"))
+    t_pack = time.perf_counter() - t0
+    if spec is None:
+        raise AssertionError("no fused table fits the neuron workload")
+    # One epoch of K1 alone, from uniform starts sorted as the driver sorts
+    # them: the kernel's share of a run.
+    eps = simulations._effective_epsilon(
+        1e-13, 1.0 / step_l, float(np.max(sub.voxel_size)) / step_l, n_t,
+        torch.float32, False)
+    epoch = _epoch_vs_plain(spec, n, eps)
+    k1_ms = epoch["ms"]
+    expected = math.ceil(n_t / spec.resort_every)
+    say(f"neuron pack: {len(sub.faces)} triangles, voxel "
+        f"{np.round(np.asarray(sub.voxel_size) * 1e6, 2).tolist()} um, "
+        f"pack_fused {t_pack:.1f} s host (cold), J={spec.resort_every}, "
+        f"n_sv={spec.n_sv}, table {spec.table.numel() * 4 / 1e6:.1f} MB; K1 "
+        f"{k1_ms:.4f} ms per epoch on {n} sorted uniform spins (plain "
+        f"{epoch['plain_ms']:.2f} ms), {expected * k1_ms:.1f} ms per run of "
+        f"{expected} epochs")
+    _say_epoch(f"kernel vs plain, neuron pack: {n} spins x "
+               f"J={spec.resort_every}", epoch)
+    runs = {}
+    for label, seed in (("warm-up", 1), ("timed", 2)):
+        fused_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        signals = simulations.simulation(
+            n, DIFFUSIVITY, bench["gradient"], dt, sub, seed=seed,
+            quiet=True, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = fused_kernel.launches
+        say(f"neuron {label}: {n} spins x {n_t} steps x 32 meas in "
+            f"{wall:.3f} s = {n * n_t / wall:.6g} spin-steps/s ({smi}); "
+            f"{launched} kernel launches; signals "
+            f"{'finite' if np.all(np.isfinite(signals)) else 'NOT finite'}")
+        if launched != expected or not np.all(np.isfinite(signals)):
+            raise AssertionError(f"neuron {label}: {launched} launches "
+                                 f"(expected {expected}) or non-finite "
+                                 "signals")
+        runs[label] = dict(wall=wall, launches=launched)
+    runs["k1_ms"] = k1_ms
+    n_c = 32
+    for label, s in (("neuron", sub), ("bundle", bench["substrate"])):
+        J = simulations._fused_spec(s, n, 1.0 / step_l,
+                                    torch.device("cuda")).resort_every
+        diag, launched, same = _counted_run(s, n, n_c, dt, seed=3)
+        units, passes, issued = diag
+        say(f"counting run ({label}): {n} spins x {n_c} steps, {launched} "
+            f"kernel launches; triangles tested per spin-step "
+            f"{64 * units / (n * n_c):.2f}, bounce passes per spin-step "
+            f"{passes / (n * n_c):.4f}, fold-lane efficiency "
+            f"{units / issued:.4f} (units folded {units}, passes {passes}, "
+            f"units issued {issued}); positions and signals "
+            f"{'equal bit for bit' if same else 'DIFFERENT'} without "
+            "counting")
+        if not (same and 0 < units <= issued
+                and launched == math.ceil(n_c / J)):
+            raise AssertionError(f"counting run ({label}) failed")
+        runs[label + " counts"] = diag
+    return runs
+
+
 def main():
     phases = (
         "card", "threefry", "bench setup", "fused kernel vs plain", "free",
         "mesh MISST", "fused bench", "mesh_hit vs plain", "analytic oracles",
         "classic mesh", "classic bench", "exchange oracles", "tracked window",
-        "tracked bench", "split and sweeps",
+        "tracked bench", "split and sweeps", "parity matrix",
+        "neuron workload",
     )
     walls = {}
 
@@ -1420,6 +1713,8 @@ def main():
     timed(phases[12], tracked_window)
     timed(phases[13], tracked_bench, bench, smi, runs)
     timed(phases[14], split_and_sweeps)
+    timed(phases[15], parity_matrix)
+    timed(phases[16], neuron_workload, bench, smi)
     say(f"phases took {sum(walls.values()):.1f} s in all")
     k1 = kp[524288, 0.0]
     print(json.dumps({"kernels": [
@@ -1431,6 +1726,7 @@ def main():
             "launches": runs["timed"]["launches"],
             "max_abs_err": max(r["max_abs_err"] for r in kp.values()),
             "ms": k1["ms"],
+            "count_ms": k1["count_ms"],
             "plain_ms": k1["plain_ms"],
             "bound_ms": k1["bound_ms"],
             "bound_by": k1["bound_by"],

@@ -26,6 +26,8 @@ utils
     Rotation helpers and optional matplotlib visualization.
 engine
     The torch compute core and the CUDA kernel bindings.
+tests
+    ``test_all()``, which runs the port's tests from a repository checkout.
 """
 
 from . import (checkpoint, gradients, meshes, parallel, simulations,
@@ -35,3 +37,12 @@ __version__ = "0.1.0"
 
 __all__ = ["checkpoint", "gradients", "meshes", "parallel", "simulations",
            "substrates", "sweeps", "utils", "__version__"]
+
+
+def test(args=()):
+    """Run the port's tests (``tests/test_torch_*.py`` of the repository
+    checkout) with pytest and return its exit code; the counterpart of
+    ``disimpy_tpu.test()``."""
+    from .tests import test_all
+
+    return test_all(args)

@@ -40,6 +40,16 @@
 //   eight lanes on identical values, so no broadcast is needed; lane 0
 //   writes the outputs.
 //
+// Counting variant (kCount, the port of the JAX package's
+// fused_count_units): the same physics, plus per spin the units it folds
+// and the bounce passes it runs (summed over the epoch's steps), and per
+// warp the unit folds it issues: in each pass its four lane-groups run
+// the largest prefix of the warp's spins still active, so the warp issues
+// four times that many. To see every pass of every spin of the warp, the
+// variant keeps the warp's lanes in step: a settled spin's lanes idle
+// through the passes of the others (__ballot_sync), which gives the same
+// values. The default variant compiles none of it.
+//
 // C interface (bound with ctypes): every entry point returns
 // cudaGetLastError() after its launch.
 
@@ -58,6 +68,7 @@ constexpr float kSlack = 1e-5f;     // hit-acceptance slack (step lengths)
 constexpr float kReqMargin = 0.05f; // margin on the reach before the ladder
 constexpr int kLanes = 8;           // lanes per spin: one per sublane r
 constexpr int kThreads = 128;       // threads per block
+constexpr int kSpinsPerWarp = 32 / kLanes;
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -111,6 +122,7 @@ struct EpochParams {
   float fine[kNumFine];    // FINE_LADDER
 };
 
+template <bool kCount>
 __global__ void __launch_bounds__(kThreads)
 fused_epoch_kernel(const float* __restrict__ pos,      // (3, n)
                    const float* __restrict__ dirs,     // (J, 3, n)
@@ -125,8 +137,15 @@ fused_epoch_kernel(const float* __restrict__ pos,      // (3, n)
                    float* __restrict__ out_pos,        // (J, 3, n)
                    int* __restrict__ out_cross,        // (J, n)
                    bool* __restrict__ out_exc,         // (n,)
+                   int* __restrict__ out_units,        // (n,), kCount only
+                   int* __restrict__ out_passes,       // (n,), kCount only
+                   int* __restrict__ out_issued,       // (ceil(n / 4),)
                    EpochParams p) {
   const int i = blockIdx.x * (kThreads / kLanes) + threadIdx.x / kLanes;
+  // Lanes of the warp with a spin: a prefix of the warp, since i grows
+  // with the lane.
+  unsigned live = 0u;
+  if constexpr (kCount) live = __ballot_sync(0xffffffffu, i < p.n);
   if (i >= p.n) return;  // the whole group of the spin returns together
   const int r = threadIdx.x % kLanes;  // this lane's sublane
   const unsigned group = ((1u << kLanes) - 1u)
@@ -141,6 +160,7 @@ fused_epoch_kernel(const float* __restrict__ pos,      // (3, n)
   const int pk = packed[i];
   const int pk2 = packed2[i];
   bool exc = false;
+  int units = 0, passes = 0, issued = 0;  // kCount only
 
   for (int s = 0; s < p.J; ++s) {
     int crossings = 0;
@@ -151,7 +171,15 @@ fused_epoch_kernel(const float* __restrict__ pos,      // (3, n)
       float rem = 1.0f;
       int iters = 1;
       bool active = true;
-      for (int it = 0; active; ++it) {
+      for (int it = 0;; ++it) {
+        unsigned busy = 0u;  // lanes whose spin runs this pass (kCount)
+        if constexpr (kCount) {
+          busy = __ballot_sync(live, active);
+          if (busy == 0u) break;
+          if (!active) continue;
+        } else {
+          if (!active) break;
+        }
         // Cell-local frame, fold cross products, runtime prefix level.
         const float xq = x - cx, yq = y - cy, zq = z - cz;
         const float ccx = yq * dz - zq * dy;
@@ -167,6 +195,14 @@ fused_epoch_kernel(const float* __restrict__ pos,      // (3, n)
         const int cnt = lvl < kNumFine
                             ? (pk2 >> (kBits * lvl)) & kMask6
                             : (pk >> (kBits * (lvl - kNumFine))) & kMask6;
+        if constexpr (kCount) {
+          units += cnt;
+          ++passes;
+          // The warp's lane-groups fold the largest prefix of this pass;
+          // its lowest busy lane books it.
+          const int most = __reduce_max_sync(busy, cnt);
+          if ((threadIdx.x & 31) == __ffs(busy) - 1) issued += most;
+        }
 
         // Fold: nearest forward hit; equal t resolves to the lowest
         // sublane r, then to the earliest (unit, group) — the TPU order.
@@ -275,6 +311,16 @@ fused_epoch_kernel(const float* __restrict__ pos,      // (3, n)
     }
   }
   if (r == 0) out_exc[i] = exc;
+  if constexpr (kCount) {
+    if (r == 0) {
+      out_units[i] = units;
+      out_passes[i] = passes;
+    }
+    issued = __reduce_add_sync(live, issued);
+    if ((threadIdx.x & 31) == 0)
+      out_issued[(blockIdx.x * kThreads + threadIdx.x) / 32] =
+          kSpinsPerWarp * issued;
+  }
 }
 
 __global__ void threefry_kernel(const int* __restrict__ x0,
@@ -292,21 +338,27 @@ __global__ void threefry_kernel(const int* __restrict__ x0,
 
 extern "C" {
 
+// out_units, out_passes and out_issued are null for the default variant;
+// given, they select the counting variant.
 int fused_epoch_launch(const void* pos, const void* dirs, const void* ids,
                        const void* start, const void* packed,
                        const void* packed2, const void* corner,
                        const void* table, const void* sv_width,
                        const void* perm, void* out_pos, void* out_cross,
-                       void* out_exc, EpochParams p, void* stream) {
+                       void* out_exc, void* out_units, void* out_passes,
+                       void* out_issued, EpochParams p, void* stream) {
   if (p.n > 0) {
     const int spins = kThreads / kLanes;  // per block
     const int blocks = (p.n + spins - 1) / spins;
-    fused_epoch_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+    auto kernel = out_units ? fused_epoch_kernel<true>
+                            : fused_epoch_kernel<false>;
+    kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const float*)pos, (const float*)dirs, (const int*)ids,
         (const int*)start, (const int*)packed, (const int*)packed2,
         (const float*)corner, (const float*)table, (const float*)sv_width,
         (const float*)perm, (float*)out_pos, (int*)out_cross,
-        (bool*)out_exc, p);
+        (bool*)out_exc, (int*)out_units, (int*)out_passes, (int*)out_issued,
+        p);
   }
   return (int)cudaGetLastError();
 }

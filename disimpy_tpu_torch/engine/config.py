@@ -1,11 +1,17 @@
-"""Engine selection.
+"""Engine selection and the fused kernel's counting variant.
 
 ``use_fused``: None or True (use the fused-step mesh engine for float32
 runs without trajectory output), or False (always use the classic
 per-bounce engine).
+
+``fused_count_units``: when True, a single-part fused run launches the
+counting variant of the epoch kernel and sums its counts into
+``simulations._STREAM_DIAG`` (see that module). The walks are the same
+bit for bit; the counts cost a little kernel time.
 """
 
 use_fused = None
+fused_count_units = False
 
 
 def mesh_engine(dtype, needs_traj):

@@ -672,7 +672,8 @@ def epoch_inputs(spec, positions, ids, t_base, seed_k):
     return order, shiftvox[:, order], inputs
 
 
-def epochs(spec, positions, ids, t0, n_t, seed_k, epsilon, max_iter):
+def epochs(spec, positions, ids, t0, n_t, seed_k, epsilon, max_iter,
+           count=False):
     """Run the steps t0 .. t0 + n_t - 1 epoch by epoch through the kernel.
 
     ``positions`` (3, n) float32 true coordinates and ``ids`` (n,) int32
@@ -682,7 +683,10 @@ def epochs(spec, positions, ids, t0, n_t, seed_k, epsilon, max_iter):
     (n,) bool and the per-step membrane transits (J, n) int32, all in the
     order of ``positions``, and the number of the epoch's steps inside the
     window. Steps past the window in the trailing partial epoch repeat the
-    last position and count no transit.
+    last position and count no transit. With ``count=True`` each epoch also
+    yields, last, the kernel's fold counts summed over the spins: a (3,)
+    int64 tensor of units folded, bounce passes and units issued
+    (``fused_kernel.fused_epoch``).
 
     Each epoch sorts the spins by anchor cell (one stable ``torch.sort``,
     :func:`epoch_inputs`), and the kernel's outputs are scattered back by
@@ -696,8 +700,9 @@ def epochs(spec, positions, ids, t0, n_t, seed_k, epsilon, max_iter):
         order, shiftvox_s, inputs = epoch_inputs(
             spec, positions, ids, t_base, seed_k
         )
-        pos_steps, exc_s, cross_s = fused_kernel.fused_epoch(
+        pos_steps, exc_s, cross_s, *counts = fused_kernel.fused_epoch(
             spec, *inputs, t_base, n_valid, seed_k, epsilon, max_iter,
+            count=count,
         )
         steps = torch.empty_like(pos_steps)
         steps[:, :, order] = pos_steps + shiftvox_s[None]
@@ -705,7 +710,11 @@ def epochs(spec, positions, ids, t0, n_t, seed_k, epsilon, max_iter):
         exc[order] = exc_s
         cross = torch.empty_like(cross_s)
         cross[:, order] = cross_s
-        yield steps, exc, cross, n_valid
+        if count:
+            yield steps, exc, cross, n_valid, torch.stack(
+                [c.sum(dtype=torch.int64) for c in counts[0]])
+        else:
+            yield steps, exc, cross, n_valid
         positions = steps[-1]
 
 
@@ -728,7 +737,7 @@ def fold_transits(compartments, cross, n_valid):
 
 def run_window_fused(spec, positions, phases, iter_exc, g_eff, ts, seed32,
                      epsilon, max_iter, id_base=0, track=False,
-                     compartments=None):
+                     compartments=None, count=False):
     """Advance the ensemble through the window ``ts`` with the fused engine.
 
     ``positions`` (3, n) are true unwrapped coordinates (step-length units),
@@ -745,11 +754,16 @@ def run_window_fused(spec, positions, phases, iter_exc, g_eff, ts, seed32,
     per-step transit counts are folded into it epoch by epoch
     (:func:`fold_transits`) and the window returns it as a third element.
 
+    With ``count=True`` the kernel's fold counts are summed over the
+    window's epochs into a (3,) int64 tensor (units folded, bounce passes,
+    units issued; see :func:`epochs`), returned last. int64 keeps a long
+    window from overflowing (the JAX package sums them in int32).
+
     Positions, phases, iter_exc and the trackers stay in canonical spin
     order (see :func:`epochs`); each epoch's phase delta is one
     (n_meas, 3J) x (3J, n) matrix product.
 
-    Returns ``(positions, phases, iter_exc)`` [, compartments].
+    Returns ``(positions, phases, iter_exc)`` [, compartments] [, counts].
     """
     from .core import require_full_fp32
 
@@ -770,15 +784,18 @@ def run_window_fused(spec, positions, phases, iter_exc, g_eff, ts, seed32,
     g_pad[:n_t] = g_eff
     g_flat = g_pad.reshape(n_epochs, J, m, 3).permute(0, 2, 1, 3).reshape(
         n_epochs, m, 3 * J)
-    for e, (steps, exc, cross, n_valid) in enumerate(epochs(
+    total = torch.zeros(3, dtype=torch.int64, device=positions.device)
+    for e, (steps, exc, cross, n_valid, *counts) in enumerate(epochs(
         spec, positions, ids, int(ts[0]), n_t, int(seed32) ^ spec.seed_salt,
-        epsilon, max_iter,
+        epsilon, max_iter, count=count,
     )):
         iter_exc = iter_exc | exc
         phases = phases + g_flat[e] @ steps.reshape(3 * J, n)
         positions = steps[-1]
         if track:
             compartments = fold_transits(compartments, cross, n_valid)
-    if track:
-        return positions, phases, iter_exc, compartments
-    return positions, phases, iter_exc
+        if count:
+            total += counts[0]
+    return ((positions, phases, iter_exc)
+            + ((compartments,) if track else ())
+            + ((total,) if count else ()))

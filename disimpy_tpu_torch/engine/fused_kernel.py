@@ -13,6 +13,13 @@ The kernel is the counterpart of the JAX package's Pallas kernel
 ``FusedMeshSpec.table`` (engine/fused.py); the CUDA kernel reads them from a
 quad-major copy (:func:`quad_major`) in which a spin's eight lanes find
 their sixteen-byte pieces side by side.
+
+With ``count=True`` both versions also count the fold's work, as the JAX
+package's ``count_units`` variant does for its own layout: per spin the
+64-triangle units it folds and the bounce passes it runs, and per warp of
+``SPINS_PER_WARP`` sorted spins the unit folds the warp issues (in each
+pass every spin's lanes run the largest prefix among the warp's active
+spins). Units folded over units issued is the fold-lane efficiency.
 """
 
 import ctypes
@@ -46,10 +53,9 @@ def _count_launch():
     with _count_lock:
         launches += 1
 
-# 64-triangle units folded by the plain version since import (or since a
-# caller reset it): the kernel folds the same units, so this counts the
-# work an epoch needs (its operations are units x 64 x FLOPS_PER_TRIANGLE).
-units_folded = 0
+# Spins per warp of the kernel (eight lanes each): the unit of the issued
+# count.
+SPINS_PER_WARP = 4
 # Floating-point operations of one feature-form triangle test (det, t, u,
 # v numerators: 6 + 6 + 11 + 12; one reciprocal, three products, u + v).
 FLOPS_PER_TRIANGLE = 40
@@ -105,7 +111,8 @@ def quad_major(table):
 
 
 def fused_epoch(spec, pos_s, dirs, ids_s, start_s, packed_s, packed2_s,
-                corner_s, t_base, n_valid_steps, seed32, epsilon, max_iter):
+                corner_s, t_base, n_valid_steps, seed32, epsilon, max_iter,
+                count=False):
     """Run one epoch (J steps) of mesh physics on epoch-sorted state.
 
     pos_s: (3, n) float32 positions wrapped into the home periodic image;
@@ -118,19 +125,22 @@ def fused_epoch(spec, pos_s, dirs, ids_s, start_s, packed_s, packed2_s,
     ``epsilon`` the surface offset and ``max_iter`` the bounce budget.
 
     Returns (per-step positions (J, 3, n) float32, iter_exc (n,) bool,
-    per-step membrane-transit counts (J, n) int32).
+    per-step membrane-transit counts (J, n) int32); with ``count=True`` a
+    fourth element ``(units, passes, issued)``: the units each spin folded
+    and the bounce passes it ran over the epoch ((n,) int32 each) and the
+    unit folds each warp of ``SPINS_PER_WARP`` sorted spins issued
+    ((ceil(n / SPINS_PER_WARP),) int32). Counting changes no other output.
     """
     kind = pos_s.device.type
     if kind == "cpu":
-        return fused_epoch_reference(
-            spec, pos_s, dirs, ids_s, start_s, packed_s, packed2_s,
-            corner_s, t_base, n_valid_steps, seed32, epsilon, max_iter,
-        )
-    if kind != "cuda":
+        run = fused_epoch_reference
+    elif kind == "cuda":
+        run = _fused_epoch_cuda
+    else:
         raise ValueError(f"fused_epoch runs on cpu or cuda, not {kind}")
-    return _fused_epoch_cuda(
-        spec, pos_s, dirs, ids_s, start_s, packed_s, packed2_s,
-        corner_s, t_base, n_valid_steps, seed32, epsilon, max_iter,
+    return run(
+        spec, pos_s, dirs, ids_s, start_s, packed_s, packed2_s, corner_s,
+        t_base, n_valid_steps, seed32, epsilon, max_iter, count=count,
     )
 
 
@@ -147,7 +157,7 @@ def _check(name, t, dtype, shape, device):
 
 def _fused_epoch_cuda(spec, pos_s, dirs, ids_s, start_s, packed_s,
                       packed2_s, corner_s, t_base, n_valid_steps, seed32,
-                      epsilon, max_iter):
+                      epsilon, max_iter, count=False):
     from ._build import load
 
     J = dirs.shape[0]
@@ -173,6 +183,12 @@ def _fused_epoch_cuda(spec, pos_s, dirs, ids_s, start_s, packed_s,
     out_pos = torch.empty((J, 3, n), dtype=f32, device=device)
     out_cross = torch.empty((J, n), dtype=i32, device=device)
     out_exc = torch.empty((n,), dtype=torch.bool, device=device)
+    counts = ()
+    if count:
+        counts = (torch.empty((n,), dtype=i32, device=device),
+                  torch.empty((n,), dtype=i32, device=device),
+                  torch.empty((-(-n // SPINS_PER_WARP),), dtype=i32,
+                              device=device))
     dil = _ladder(spec, J)
     params = EpochParams(
         n=n, J=J, n_valid=int(n_valid_steps), seed=_int32(seed32),
@@ -181,7 +197,7 @@ def _fused_epoch_cuda(spec, pos_s, dirs, ids_s, start_s, packed_s,
         fine=(ctypes.c_float * len(FINE_LADDER))(*FINE_LADDER),
     )
     fn = load("fused_epoch").lib.fused_epoch_launch
-    fn.argtypes = [ctypes.c_void_p] * 13 + [EpochParams, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 16 + [EpochParams, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -191,11 +207,14 @@ def _fused_epoch_cuda(spec, pos_s, dirs, ids_s, start_s, packed_s,
             corner_s.data_ptr(), quad_major(spec.table).data_ptr(),
             spec.sv_width.data_ptr(), spec.perm_prob.data_ptr(),
             out_pos.data_ptr(), out_cross.data_ptr(), out_exc.data_ptr(),
+            *([c.data_ptr() for c in counts] if count else [None] * 3),
             params, stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_epoch kernel launch failed: CUDA error {rc}")
     _count_launch()
+    if count:
+        return out_pos, out_exc, out_cross, counts
     return out_pos, out_exc, out_cross
 
 
@@ -245,9 +264,7 @@ def _fold_units(table, start, cnt, q, d, cc):
     running best only if it is strictly nearer or equally near with a
     lower r.
     """
-    global units_folded
     a = start.shape[0]
-    units_folded += int(cnt.sum())
     inf = torch.tensor(float("inf"), dtype=torch.float32, device=q.device)
     best = torch.full((a,), float("inf"), dtype=torch.float32, device=q.device)
     best_r = torch.full((a,), 8, dtype=torch.int64, device=q.device)
@@ -295,11 +312,14 @@ def _fold_units(table, start, cnt, q, d, cc):
 
 def fused_epoch_reference(spec, pos_s, dirs, ids_s, start_s, packed_s,
                           packed2_s, corner_s, t_base, n_valid_steps,
-                          seed32, epsilon, max_iter):
+                          seed32, epsilon, max_iter, count=False):
     """Plain-torch version of :func:`fused_epoch` (same arguments and
     returns), vectorised over spins in chunks of ``_CHUNK`` with masked
     bounce passes. Every spin still active in a pass is at the same pass
-    index, which keys its permeability uniform."""
+    index, which keys its permeability uniform; a warp's issued units are
+    SPINS_PER_WARP times, per pass, the largest count among its active
+    spins (``_CHUNK`` is a multiple of SPINS_PER_WARP, so no warp spans two
+    chunks)."""
     J = dirs.shape[0]
     n = pos_s.shape[1]
     device = pos_s.device
@@ -314,6 +334,10 @@ def fused_epoch_reference(spec, pos_s, dirs, ids_s, start_s, packed_s,
     out_pos = torch.empty((J, 3, n), dtype=f32, device=device)
     out_cross = torch.zeros((J, n), dtype=torch.int32, device=device)
     out_exc = torch.zeros((n,), dtype=torch.bool, device=device)
+    i64 = torch.int64
+    units = torch.zeros((n,), dtype=i64, device=device)
+    passes = torch.zeros((n,), dtype=i64, device=device)
+    issued = torch.zeros((-(-n // SPINS_PER_WARP),), dtype=i64, device=device)
     for lo in range(0, n, _CHUNK):
         sl = slice(lo, min(lo + _CHUNK, n))
         x = pos_s[:, sl].clone()
@@ -322,6 +346,8 @@ def fused_epoch_reference(spec, pos_s, dirs, ids_s, start_s, packed_s,
         ids = ids_s[sl]
         m = x.shape[1]
         exc = torch.zeros((m,), dtype=torch.bool, device=device)
+        w0 = lo // SPINS_PER_WARP
+        warp_issued = issued[w0:w0 - (-m // SPINS_PER_WARP)]
         for s in range(J):
             if s < n_valid_steps:
                 d = dirs[s][:, sl].clone()
@@ -353,6 +379,11 @@ def fused_epoch_reference(spec, pos_s, dirs, ids_s, start_s, packed_s,
                     cnt_c = (pk[A] >> (BITS * torch.clamp(lvl - nf, min=0))) & 63
                     cnt = torch.where(lvl < nf, cnt_f, cnt_c)
                     best, bn = _fold_units(spec.table, start[A], cnt, q, da, cc)
+                    units[lo + A] += cnt
+                    passes[lo + A] += 1
+                    most = torch.zeros_like(warp_issued).scatter_reduce_(
+                        0, A // SPINS_PER_WARP, cnt.to(i64), "amax")
+                    warp_issued += SPINS_PER_WARP * most
 
                     hit = best <= ra + SLACK
                     rn = torch.rsqrt(torch.clamp(
@@ -395,4 +426,8 @@ def fused_epoch_reference(spec, pos_s, dirs, ids_s, start_s, packed_s,
                 out_cross[s, sl] = crs
             out_pos[s][:, sl] = x
         out_exc[sl] = exc
+    if count:
+        i32 = torch.int32
+        return (out_pos, out_exc, out_cross,
+                (units.to(i32), passes.to(i32), issued.to(i32)))
     return out_pos, out_exc, out_cross

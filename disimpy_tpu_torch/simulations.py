@@ -20,6 +20,28 @@ Compartment tracking (``exchange_stats=True``, a two-compartment
 into contiguous parts, one per device, run concurrently
 (``parallel/sharding.py``).
 
+With ``engine.config.fused_count_units = True`` a single-part fused run
+resets ``_STREAM_DIAG`` and fills it with the epoch kernel's fold counts,
+summed over every spin, step and bounce pass of the run:
+
+- ``_STREAM_DIAG[0]``: 64-triangle units folded. Triangles tested per
+  spin-step = 64 * diag[0] / (n_walkers * n_t).
+- ``_STREAM_DIAG[1]``: bounce passes. Passes per spin-step = diag[1] /
+  (n_walkers * n_t).
+- ``_STREAM_DIAG[2]``: unit folds issued: per pass, each warp of four
+  sorted spins runs the largest prefix among its active spins in all four
+  spins' lanes. Fold-lane efficiency = diag[0] / diag[2] (at most 1).
+
+The JAX package's slots count its TPU kernel's 128-lane blocks instead:
+[units folded per 128-lane block, gated block-passes, live-lane-weighted
+units]. Its "streamed tris/spin-step" (64 * 128 * diag[0] / (n * n_t))
+counts every lane of a block that folds a unit, so it is nearer the port's
+issued triangles per spin-step (64 * diag[2] / (n * n_t)) than its
+triangles tested, and neither is the same quantity. A
+classic run, a run handed over to the classic engine, a split run and a
+run with counting off leave ``_STREAM_DIAG`` as it was (the JAX package's
+rule).
+
 All geometry is rescaled to step-length units. Randomness is the
 counter-based threefry of ``engine/krng.py``, keyed per (seed, step, spin
 id); host-side seeding uses the same numpy RNG calls as the JAX package, so
@@ -43,6 +65,10 @@ __all__ = ["simulation", "add_noise_to_data"]
 
 # Mixed into the simulation seed for device-side "uniform" mesh seeding.
 UNIFORM_SALT = 0x756E6966
+
+# Fold counts of the last counted fused run: [units folded, bounce passes,
+# units issued] (module docstring).
+_STREAM_DIAG = [0, 0, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +166,8 @@ def _count_crossings_x(points, triangles, candidates):
 def _ray_crossings_x(points, triangles, tri_subset=None):
     """Number of triangles crossed by the +x ray from each point.
 
-    ``points`` is (n, 3); ``triangles`` is (m, 3, 3). If ``tri_subset`` is
+    ``points`` is (n, 3); ``triangles`` is (m, 3, 3) (an array or a float32
+    tensor). If ``tri_subset`` is
     given — an (n, K) int array of candidate triangle indices per point,
     -1-padded — only those triangles are tested. Runs in float32 on CPU
     tensors: seeding is host-side preprocessing.
@@ -203,26 +230,39 @@ def _make_intra_classifier(substrate):
     if not substrate.periodic:
         vertices = vertices[:-8]
         faces = faces[:-12]
-    triangles = vertices[faces]
+    triangles = torch.as_tensor(vertices[faces], dtype=torch.float32)
     columns = _column_candidates(substrate, len(faces))
+    per_column = (columns >= 0).sum(axis=1)
     n_sv = np.asarray(substrate.n_sv).astype(int)
     voxel_size = np.asarray(substrate.voxel_size)
     sv_width = voxel_size / n_sv
-    # Points per chunk: eager torch materialises the (chunk, K, 3, 3)
-    # candidate gather, so keep it to ~1e6 (point, triangle) pairs.
-    chunk = max(64, int(1e6) // max(columns.shape[1], 1))
+    # (point, triangle) pairs per batch: eager torch materialises the
+    # (points, K, 3, 3) candidate gather.
+    budget = int(1e6)
 
     def classify(p):
+        # Points go in batches of similar candidate counts, each batch
+        # testing only up to its own largest count: column sizes vary
+        # tenfold on a neuron mesh, and padding every point to the largest
+        # column would test the padding. Each (point, triangle) test is
+        # elementwise, so the parities do not depend on the batching.
         p = np.asarray(p, dtype=float)
+        cy = np.clip((p[:, 1] / sv_width[1]).astype(int), 0, n_sv[1] - 1)
+        cz = np.clip((p[:, 2] / sv_width[2]).astype(int), 0, n_sv[2] - 1)
+        col = cy * n_sv[2] + cz
+        order = np.argsort(per_column[col], kind="stable")
+        k_sorted = per_column[col[order]]
         inside = np.empty(len(p), dtype=bool)
-        for s in range(0, len(p), chunk):
-            q = p[s : s + chunk]
-            cy = np.clip((q[:, 1] / sv_width[1]).astype(int), 0, n_sv[1] - 1)
-            cz = np.clip((q[:, 2] / sv_width[2]).astype(int), 0, n_sv[2] - 1)
-            candidates = columns[cy * n_sv[2] + cz]
-            inside[s : s + chunk] = (
-                _ray_crossings_x(q, triangles, candidates) % 2
-            ).astype(bool)
+        s = 0
+        while s < len(p):
+            e = min(len(p), s + max(1, budget // max(k_sorted[s], 1)))
+            while e - s > 1 and (e - s) * k_sorted[e - 1] > budget:
+                e = s + max(1, budget // max(k_sorted[e - 1], 1))
+            idx = order[s:e]
+            k = max(int(k_sorted[e - 1]), 1)
+            inside[idx] = (_ray_crossings_x(
+                p[idx], triangles, columns[col[idx], :k]) % 2).astype(bool)
+            s = e
         return inside
 
     return classify
@@ -751,16 +791,22 @@ def simulation(
     if mesh_engine == "fused":
         from .engine import fused
 
+        count = bool(engine_config.fused_count_units) and len(parts) == 1
+        if count:
+            _STREAM_DIAG[:] = [0, 0, 0]
+
         def fused_part(part):
             out = fused.run_window_fused(
                 part.spec, part.positions, part.phases, part.iter_exc,
                 part.g_eff, range(n_t), seed32, eps_eff, max_iter,
                 id_base=part.lo, track=track,
-                compartments=part.compartments,
+                compartments=part.compartments, count=count,
             )
             part.positions, part.phases, part.iter_exc = out[:3]
             if track:
                 part.compartments = out[3]
+            if count:
+                _STREAM_DIAG[:] = [int(c) for c in out[-1].tolist()]
 
         parallel.run_parts(fused_part, [(p,) for p in parts])
     else:

@@ -20,11 +20,21 @@ prefixed by the run it comes from:
   ``tests/test_permeability.py``): crossings and intra steps;
 - ``sweep_sphere`` / ``sweep_cylinder``: ``disimpy_tpu.sweeps`` at 2000
   spins on the 100-step gradient of ``tests/test_sweeps.py``, sphere radii
-  (2, 5, 10) um and cylinder radii (1, 4, 8) um along (0, 1, 1).
+  (2, 5, 10) um and cylinder radii (1, 4, 8) um along (0, 1, 1);
+- ``nonperiodic_*``: the closed cylinder mesh, non-periodic with 2 um of
+  padding (the ``mesh_misst_p0_pad1`` cell of ``PARITY_r05.json``) at the
+  MISST step length: 512 "intra" starts from ``simulations._fill_mesh``
+  (seed 123), the first epoch's anchor-sorted spin ids, and
+  ``engine.fused.run_window_fused`` in Pallas interpret mode over 8 steps
+  with a seeded random gradient (seed 17): final positions, phases,
+  iter_exc, the effective epsilon and the gradient;
+- ``neuron_*``: the start classifier (``_make_intra_classifier``) of the
+  neuron mesh, non-periodic, n_sv 20^3, on 1,024 points near its surface
+  (seeded vertices plus offsets of up to 1 um, seed 19), and its answers.
 
-The inputs are rebuilt the same way by ``tests/test_torch_exchange.py`` and
-``tests/test_torch_sweeps.py``; rerun this script when the JAX package or
-those setups change.
+The inputs are rebuilt the same way by ``tests/test_torch_exchange.py``,
+``tests/test_torch_sweeps.py`` and ``tests/test_torch_nonperiodic.py``;
+rerun this script when the JAX package or those setups change.
 """
 
 import os
@@ -44,8 +54,11 @@ import numpy as np  # noqa: E402
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+import jax.numpy as jnp  # noqa: E402
+from jax import lax  # noqa: E402
+
 from disimpy_tpu import gradients, simulations, substrates, sweeps  # noqa: E402
-from disimpy_tpu.engine import config  # noqa: E402
+from disimpy_tpu.engine import config, fused  # noqa: E402
 
 OUT = ROOT / "tests" / "oracles" / "jax_reference_runs.npz"
 D = 2e-9
@@ -60,6 +73,65 @@ SWEEP_SPINS = 2000
 SPHERE_RADII = np.array([2e-6, 5e-6, 10e-6])
 CYLINDER_RADII = np.array([1e-6, 4e-6, 8e-6])
 ORIENTATION = np.array([0.0, 1.0, 1.0])
+# The non-periodic padded closed cylinder (tests/test_torch_nonperiodic.py).
+NP_SPINS, NP_STEPS, NP_MEAS, NP_SEED = 512, 8, 4, 123
+NP_DT = 70e-3 / 999  # the MISST protocol's step duration
+NP_PADDING = 2e-6
+# The neuron classifier points (tests/test_torch_nonperiodic.py).
+NEURON_POINTS, NEURON_SEED = 1024, 19
+
+
+def nonperiodic_cylinder(mod, mesh, init_pos="intra"):
+    """The mesh_misst_p0_pad1_nsv10x10x10 substrate of module ``mod``."""
+    return mod.mesh(mesh["vertices"], mesh["faces"], False,
+                    padding=np.full(3, NP_PADDING), init_pos=init_pos,
+                    n_sv=np.array([10, 10, 10]), quiet=True)
+
+
+def nonperiodic_gradient():
+    """(NP_STEPS, NP_MEAS, 3) phase coefficients per step-length unit."""
+    return np.random.RandomState(17).normal(
+        scale=0.05, size=(NP_STEPS, NP_MEAS, 3)).astype(np.float32)
+
+
+def neuron_points(substrate):
+    """Seeded points within 1 um of the neuron mesh's vertices."""
+    rng = np.random.RandomState(NEURON_SEED)
+    vertices = np.asarray(substrate.vertices)[:-8]  # no voxel corners
+    pick = rng.randint(0, len(vertices), NEURON_POINTS)
+    return vertices[pick] + rng.uniform(-1e-6, 1e-6, (NEURON_POINTS, 3))
+
+
+def nonperiodic_run(mesh):
+    """Starts, first-epoch sorted ids and the fused window of the
+    non-periodic padded closed cylinder (JAX, Pallas interpret mode)."""
+    sub = nonperiodic_cylinder(substrates, mesh)
+    starts = simulations._fill_mesh(NP_SPINS, sub, True, NP_SEED)
+    step_l = np.sqrt(6 * D * NP_DT)
+    spec = fused.pack_fused(sub, 1 / step_l, n_hint=float(NP_SPINS))
+    pos = jnp.asarray(starts.T * (1.0 / step_l), jnp.float32)
+    ids = jnp.arange(NP_SPINS, dtype=jnp.int32)
+    cell = fused._cell_keys(spec, pos)[0]
+    ids_s = lax.sort((cell, ids), num_keys=1)[1]
+    eps = simulations._effective_epsilon(
+        1e-13, 1 / step_l, float(np.max(sub.voxel_size)) / step_l, NP_STEPS,
+        jnp.float32, True)
+    g_eff = nonperiodic_gradient()
+    try:
+        config.pallas_interpret = True
+        (p, ph, exc), _ = fused.run_window_fused(
+            spec, pos, jnp.zeros((NP_MEAS, NP_SPINS), jnp.float32),
+            jnp.zeros(NP_SPINS, bool), jnp.asarray(g_eff),
+            jnp.arange(0, NP_STEPS), jnp.asarray(NP_SEED, jnp.int32),
+            jnp.asarray(eps, jnp.float32), jnp.asarray(1000, jnp.int32),
+            interpret=True,
+        )
+    finally:
+        config.pallas_interpret = False
+    return dict(nonperiodic_starts=starts, nonperiodic_ids=ids_s,
+                nonperiodic_g_eff=g_eff, nonperiodic_eps=np.float64(eps),
+                nonperiodic_pos=p, nonperiodic_phases=ph,
+                nonperiodic_iter_exc=exc)
 
 
 def fused_gradient():
@@ -122,6 +194,16 @@ def main():
     out["sweep_cylinder"] = sweeps.sweep_cylinder_radii(
         SWEEP_SPINS, D, gradient, dt, CYLINDER_RADII,
         orientation=ORIENTATION)
+
+    out.update(nonperiodic_run(mesh))
+
+    with open(ROOT / "tests" / "oracles" / "neuron-model.pkl", "rb") as f:
+        neuron = pickle.load(f)
+    sub = substrates.mesh(neuron["vertices"], neuron["faces"], False,
+                          n_sv=np.array([20, 20, 20]), quiet=True)
+    points = neuron_points(sub)
+    out.update(neuron_points=points,
+               neuron_inside=simulations._make_intra_classifier(sub)(points))
 
     np.savez_compressed(OUT, **{k: np.asarray(v) for k, v in out.items()})
     print(f"{OUT.relative_to(ROOT)}: "

@@ -117,3 +117,19 @@ def test_mesh_substrate_equals_jax(oracles_dir, periodic):
         npt.assert_array_equal(getattr(s_t, name), getattr(s_j, name))
     with pytest.raises(ValueError):
         substrates.mesh(mesh["vertices"], mesh["faces"], "yes", quiet=True)
+
+
+def test_package_test_runners_call_pytest_on_the_port_tests(monkeypatch):
+    import pathlib
+
+    import disimpy_tpu_torch
+    import disimpy_tpu_torch.tests as port_tests
+
+    calls = []
+    monkeypatch.setattr(pytest, "main", lambda args: calls.append(args) or 0)
+    assert disimpy_tpu_torch.test(["-q"]) == 0
+    assert port_tests.test_all(["-x"]) == 0
+    files = sorted(str(p) for p in
+                   pathlib.Path(__file__).parent.glob("test_torch_*.py"))
+    assert __file__ in files and len(files) > 10
+    assert calls == [[*files, "-q"], [*files, "-x"]]
