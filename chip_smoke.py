@@ -27,7 +27,13 @@ Phases, one line each (any failure raises, so the exit code is non-zero):
    bit for bit;
 4. free diffusion through ``simulation()`` against exp(-bD) (<= 0.01);
 5. the closed cylinder mesh through ``simulation()`` against the vendored
-   MISST signal (<= 0.015), with the leak checks of the JAX package's test;
+   MISST signal (<= 0.015), with the leak checks of the JAX package's test
+   on top of the radial one;
+
+   phases 4, 5, 8 and 11 run their PARITY_r05 setups through
+   ``scripts/parity_torch.py`` (``Parity.free``, ``mesh``, ``analytic`` and
+   ``exchange``, one ``Parity`` for the whole script) and add their own
+   checks on top;
 6. the bench workload (102,400-triangle periodic bundle, 524,288 spins x
    150 steps x 32 measurements, uniform seeding) through ``simulation()``:
    pack time and static prefixes, a warm-up and a timed run, kernel
@@ -102,7 +108,21 @@ Phases, one line each (any failure raises, so the exit code is non-zero):
    kernel's counting variant (``config.fused_count_units``) on the neuron
    and on the bundle: triangles tested and bounce passes per spin-step and
    the fold-lane efficiency, each run equal bit for bit to the same run
-   without counting.
+   without counting;
+17. the J and width sweep: on the bundle and the neuron, for each epoch
+   length J = 1..5 (``config.fused_resort_every``) and for the two cell
+   widths either side of the searched one (``config.fused_cell_steps``, at
+   J = 4), through ``simulation()``: the pack's host time, the J asked for
+   and the J chosen, n_sv, units and table MB; one epoch of the kernel
+   against its plain version on 16,384 sorted spins as in phase 3 (equal
+   iter_exc and transit counts, at most 0.5% divergent, the counting
+   variant's counts); the kernel's time per epoch at 524,288 spins (median
+   and range of five readings); a warm-up and a timed run of 524,288 spins
+   x 150 steps with ceil(150 / J) kernel launches and finite signals; a
+   32-step counting run (triangles tested and bounce passes per spin-step,
+   fold-lane efficiency); and the kernel's bound per epoch from that run's
+   units and the table's bytes. The records are printed as one JSON line
+   ("k1 sweep: ...").
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the rest
@@ -241,23 +261,37 @@ def threefry_check():
         f"{len(keys)} keys (incl. negative int32) x 13/20 rounds")
 
 
-def bench_setup():
-    """The bench bundle (bench.py's workload) and its pack, with the static
-    prefix sizes the JAX package's pack gives (BENCH_r05.json tail)."""
-    from disimpy_tpu_torch import gradients, meshes, substrates
-    from disimpy_tpu_torch.engine import fused
+# bench.py's bundle: step duration and step length.
+BUNDLE_DT = 1.3e-5
+BUNDLE_STEP = float(np.sqrt(6 * DIFFUSIVITY * BUNDLE_DT))
 
-    dt = 1.3e-5
-    step_l = float(np.sqrt(6 * DIFFUSIVITY * dt))
-    radius, spacing, grid = 1.5e-6, 4e-6, (8, 8)
+
+def _bundle_substrate():
+    """bench.py's bundle substrate: 8 x 8 open cylinders (r 1.5 um, 4 um
+    apart, 32 facets x 25 segments), periodic. Returns (substrate,
+    vertices, faces)."""
+    from disimpy_tpu_torch import meshes, substrates
+
     vertices, faces = meshes.cylinder_array_mesh(
-        radius, spacing, grid=grid, length=32e-6, n_facets=32, n_segments=25
+        1.5e-6, 4e-6, grid=(8, 8), length=32e-6, n_facets=32, n_segments=25
     )
-    n_sv = max(1, int(spacing * grid[0] / (4.2 * step_l)))
-    t0 = time.perf_counter()
+    n_sv = max(1, int(4e-6 * 8 / (4.2 * BUNDLE_STEP)))
     substrate = substrates.mesh(
         vertices, faces, periodic=True, n_sv=np.array([n_sv] * 3), quiet=True
     )
+    return substrate, vertices, faces
+
+
+def bench_setup():
+    """The bench bundle (bench.py's workload) and its pack, with the static
+    prefix sizes the JAX package's pack gives (BENCH_r05.json tail)."""
+    from disimpy_tpu_torch import gradients
+    from disimpy_tpu_torch.engine import fused
+
+    dt, step_l = BUNDLE_DT, BUNDLE_STEP
+    radius, spacing, grid = 1.5e-6, 4e-6, (8, 8)
+    t0 = time.perf_counter()
+    substrate, vertices, faces = _bundle_substrate()
     t_sub = time.perf_counter() - t0
     t0 = time.perf_counter()
     spec = fused.pack_fused(
@@ -289,7 +323,7 @@ def bench_setup():
     gradient, _ = gradients.pgse(1e-3, dt * 150 - 1e-3, 150, bvals, bvecs)
     return dict(substrate=substrate, spec=spec, step_l=step_l, dt=dt,
                 gradient=gradient, vertices=vertices, radius=radius,
-                spacing=spacing, grid=grid)
+                spacing=spacing, grid=grid, pack_s=t_pack)
 
 
 def _sorted_epoch_inputs(spec, n, seed):
@@ -583,52 +617,42 @@ def kernel_vs_plain(bench):
     return record
 
 
-def free_oracle():
-    """Phase 4: free diffusion against exp(-bD)."""
-    from disimpy_tpu_torch import gradients, simulations, substrates
+def _parity_torch():
+    """``scripts/parity_torch.py``, which holds the PARITY_r05 setups."""
+    scripts = os.path.join(REPO, "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import parity_torch
 
-    bvals = np.linspace(1, 3e9, 16)
-    bvecs = np.tile([[1.0, 0.0, 0.0]], (16, 1))
-    gradient, dt = gradients.pgse(20e-3, 40e-3, 1000, bvals, bvecs)
-    n = 100000
-    s = simulations.simulation(n, DIFFUSIVITY, gradient, dt,
-                               substrates.free(), quiet=True, device="cuda")
-    err = float(np.abs(s / n - np.exp(-bvals * DIFFUSIVITY)).max())
-    say(f"free diffusion: {n} spins x 1000 steps, max |S/n - exp(-bD)| = "
-        f"{err:.5f} (limit 0.01)")
-    if not err <= 0.01:
-        raise AssertionError("free diffusion misses exp(-bD)")
+    return parity_torch
 
 
-def misst_oracle():
-    """Phase 5: the closed cylinder mesh against the MISST signal."""
-    from disimpy_tpu_torch import gradients, simulations, substrates
+def _require(parity, *keys):
+    """Fail unless every named check of ``parity`` met its threshold."""
+    failed = [k for k in keys if not parity.results[k]["pass"]]
+    if failed:
+        raise AssertionError(f"parity checks failed: {failed}")
 
-    with open(os.path.join(ORACLES, "cylinder_mesh_closed.pkl"), "rb") as f:
-        mesh = pickle.load(f)
-    bs = np.linspace(1, 3e9, 100)
-    T, n0, lobe = 70e-3, 700, 300
-    gradient = np.zeros((1, n0, 3))
-    gradient[0, 1:lobe, 0] = 1
-    gradient[0, -lobe:-1, 0] = -1
-    gradient = np.concatenate([gradient for _ in bs], axis=0)
-    gradient, dt = gradients.interpolate_gradient(gradient, T / (n0 - 1), 1000)
-    gradient = gradients.set_b(gradient, dt, bs)
-    substrate = substrates.mesh(
-        mesh["vertices"], mesh["faces"], True, padding=np.zeros(3),
-        init_pos="intra", n_sv=np.array([10, 10, 10]), quiet=True,
-    )
-    n = 10000
-    t0 = time.perf_counter()
-    signals, pos = simulations.simulation(
-        n, DIFFUSIVITY, gradient, dt, substrate, final_pos=True, quiet=True,
-        device="cuda",
-    )
-    wall = time.perf_counter() - t0
-    misst = np.loadtxt(os.path.join(
-        ORACLES,
-        "misst_cylinder_signal_smalldelta_30ms_bigdelta_40ms_radius_5um.txt"))
-    err = float(np.abs(signals / n - misst).max())
+
+def free_oracle(parity):
+    """Phase 4: free diffusion against exp(-bD) (``Parity.free``)."""
+    parity.free()
+    r = parity.results["free_vs_exp"]
+    say(f"free diffusion: {parity.n(1e5)} spins x {parity.t(1000)} steps x "
+        f"100 b in {r['wall_s']:.1f} s, max |S/n - exp(-bD)| = "
+        f"{r['value']:.5f} (limit 0.01)")
+    _require(parity, "free_vs_exp")
+
+
+def misst_oracle(parity):
+    """Phase 5: the closed cylinder mesh against the MISST signal
+    (``Parity.mesh`` on its periodic, unpadded, n_sv 10^3 cell), with the
+    leak checks of the JAX package's test on top of its radial one."""
+    pt = _parity_torch()
+    n_sv = (10, 10, 10)
+    key = pt.mesh_key(True, 0, n_sv)
+    _, pos = parity.mesh(periodic=(True,), padding=(0,), n_svs=(n_sv,))[key]
+    substrate = parity.substrates[key]
     r = np.max(np.linalg.norm(
         substrate.vertices[:, 0:2] - substrate.voxel_size[0:2] / 2, axis=1))
     length = substrate.voxel_size[2]
@@ -636,12 +660,14 @@ def misst_oracle():
         pos[:, 0:2] - np.max(substrate.vertices, axis=0)[0:2] / 2, axis=1)
     leak = not (pos[:, 2].min() > 0 and pos[:, 2].max() < length
                 and radial.max() < r)
-    say(f"mesh MISST: {n} intra spins x 1000 steps x 100 b ({wall:.1f} s "
-        f"incl. seeding and pack), max |S/n - MISST| = {err:.5f} (limit "
-        f"0.015), leak {'YES' if leak else 'none'} (max radius "
-        f"{radial.max():.4g} < {r:.4g} m)")
-    if not err <= 0.015:
-        raise AssertionError("mesh signal misses the MISST oracle")
+    run = parity.results[key]
+    say(f"mesh MISST: {parity.n(1e4)} intra spins x {parity.t(1000)} steps "
+        f"x 100 b ({run['wall_s']:.1f} s incl. seeding and pack, "
+        f"{run['engine']}), "
+        f"max |S/n - MISST| = {run['value']:.5f} (limit 0.015), leak "
+        f"{'YES' if leak else 'none'} (max radius {radial.max():.4g} < "
+        f"{r:.4g} m)")
+    _require(parity, key, key + "_leak")
     if leak:
         raise AssertionError("spins left the closed cylinder")
 
@@ -960,65 +986,48 @@ def mesh_hit_vs_plain(bench):
     return full
 
 
+# The b-values of the vendored MISST signals.
+MISST_B = np.linspace(1, 3e9, 100)
+
+
 def _misst_gradient(small_delta_ms, n_t=1000):
-    """The PGSE protocols of the vendored MISST signals (100 b-values)."""
-    from disimpy_tpu_torch import gradients
-
-    bs = np.linspace(1, 3e9, 100)
-    if small_delta_ms == 30:
-        T, n0, lobe = 70e-3, 700, 300
-    else:
-        T, n0, lobe = 41e-3, 410, 10
-    gradient = np.zeros((1, n0, 3))
-    gradient[0, 1:lobe, 0] = 1
-    gradient[0, -lobe:-1, 0] = -1
-    gradient = np.concatenate([gradient for _ in bs], axis=0)
-    gradient, dt = gradients.interpolate_gradient(gradient, T / (n0 - 1), n_t)
-    return gradients.set_b(gradient, dt, bs), dt
+    """The PGSE protocols of the vendored MISST signals
+    (``parity_torch.misst_protocol``)."""
+    return _parity_torch().misst_protocol(small_delta_ms, MISST_B, n_t)
 
 
-def analytic_oracles():
-    """Phase 8: sphere and cylinder against MISST, ellipsoid == sphere,
-    sphere confinement."""
+def analytic_oracles(parity):
+    """Phase 8: sphere and cylinder against MISST (``Parity.analytic``),
+    with confinement from their final positions on top, and ellipsoid ==
+    sphere."""
     from disimpy_tpu_torch import simulations, substrates
 
-    n, r = 100000, 5e-6
-    for kind in ("sphere", "cylinder"):
-        for small_delta in (30, 1):
-            gradient, dt = _misst_gradient(small_delta)
-            sub = (substrates.sphere(r) if kind == "sphere" else
-                   substrates.cylinder(r, np.array([0.0, 0.0, 1.0])))
-            t0 = time.perf_counter()
-            signals, pos = simulations.simulation(
-                n, DIFFUSIVITY, gradient, dt, sub, quiet=True, final_pos=True,
-                device="cuda")
-            wall = time.perf_counter() - t0
-            misst = np.loadtxt(os.path.join(
-                ORACLES, f"misst_{kind}_signal_smalldelta_{small_delta}ms_"
-                "bigdelta_40ms_radius_5um.txt"))
-            err = float(np.abs(signals / n - misst).max())
-            step_l = np.sqrt(6 * DIFFUSIVITY * dt)
-            radial = (np.linalg.norm(pos, axis=1) if kind == "sphere"
-                      else np.linalg.norm(pos[:, :2], axis=1))
-            over = (radial.max() - r) / step_l
-            escaped = int((radial > r + 1e-2 * step_l).sum())
-            # A float32 step that ends within rounding of the wall can land
-            # outside it; moving outward next, the impermeable far-root
-            # rule finds no root and the spin leaves (the JAX package: 1
-            # of 1e5 sphere spins at small delta 1 ms, ROADMAP section 3).
-            allowed = 0 if (kind, small_delta) == ("sphere", 30) else 1e-4 * n
-            say(f"{kind} MISST, small delta {small_delta} ms: {n} spins x "
-                f"1000 steps x 100 b in {wall:.1f} s, max |S/n - MISST| = "
-                f"{err:.5f} (limit 0.01); {escaped} spins beyond r + 1e-2 "
-                f"step lengths (limit {allowed:g}), max radius - r = "
-                f"{over:.3g} step lengths")
-            if not err <= 0.01:
-                raise AssertionError(f"{kind} misses the MISST oracle")
-            if escaped > allowed:
-                raise AssertionError(f"{kind} does not confine its spins")
-            if kind == "sphere" and small_delta == 30:
-                sphere_30 = signals
-    gradient, dt = _misst_gradient(30)
+    n, r = parity.n(1e5), 5e-6
+    runs = parity.analytic()
+    n_t = parity.t(1000)
+    for (kind, small_delta), (_, pos) in runs.items():
+        _, dt = _misst_gradient(small_delta, n_t)
+        step_l = np.sqrt(6 * DIFFUSIVITY * dt)
+        radial = (np.linalg.norm(pos, axis=1) if kind == "sphere"
+                  else np.linalg.norm(pos[:, :2], axis=1))
+        over = (radial.max() - r) / step_l
+        escaped = int((radial > r + 1e-2 * step_l).sum())
+        # A float32 step that ends within rounding of the wall can land
+        # outside it; moving outward next, the impermeable far-root rule
+        # finds no root and the spin leaves (the JAX package: 1 of 1e5
+        # sphere spins at small delta 1 ms, ROADMAP section 3).
+        allowed = 0 if (kind, small_delta) == ("sphere", 30) else 1e-4 * n
+        key = f"{kind}_misst_{small_delta}ms"
+        say(f"{kind} MISST, small delta {small_delta} ms: {n} spins x "
+            f"{n_t} steps x 100 b in {parity.results[key]['wall_s']:.1f} s, "
+            f"max |S/n - MISST| = {parity.results[key]['value']:.5f} (limit "
+            f"0.01); {escaped} spins beyond r + 1e-2 step lengths (limit "
+            f"{allowed:g}), max radius - r = {over:.3g} step lengths")
+        _require(parity, key)
+        if escaped > allowed:
+            raise AssertionError(f"{kind} does not confine its spins")
+    sphere_30 = runs["sphere", 30][0]
+    gradient, dt = _misst_gradient(30, n_t)
     ellipsoid = simulations.simulation(
         n, DIFFUSIVITY, gradient, dt, substrates.ellipsoid(np.ones(3) * r),
         quiet=True, device="cuda")
@@ -1210,57 +1219,53 @@ def _weight_gap(signal, intra_steps, n_t, dt):
     return abs(float(signal) - w.sum()) / w.sum()
 
 
-def exchange_oracles():
+def exchange_oracles(parity):
     """Phase 11: the five PARITY checks of exchange and relaxation at their
-    full size and thresholds (scripts/parity_r04.py), the exchange cell also
-    through the classic engine."""
-    import warnings
+    full size and thresholds (``Parity.exchange``), each run's kernel
+    launches, and the exchange cell again through the classic engine."""
+    from disimpy_tpu_torch.engine import config
 
-    from disimpy_tpu_torch import gradients, simulations, substrates
-    from disimpy_tpu_torch.engine import config, fused_kernel, mesh_kernel
-
-    n, n_t, dt = 100000, 200, 2e-4
-    g0 = np.zeros((1, n_t, 3))
-    sub = _exchange_cylinder()
-    runs = {}
+    runs = parity.exchange()
+    sub, stats, run = runs["cell"]
+    n, n_t, dt = parity.n(1e5), parity.t(200), 2e-4
+    launches = run["launches"]
+    c, f = stats["crossings"].astype(float), stats["intra_fraction"]
+    say(f"exchange cell ({run['engine']}): closed cylinder mesh, perm 0.2, "
+        f"{n} intra spins x {n_t} steps in {run['wall_s']:.2f} s; "
+        f"{launches['fused_epoch']} fused_epoch and {launches['mesh_hit']} "
+        f"mesh_hit launches; weight identity |S - sum w| / sum w = "
+        f"{parity.results['fused_exchange_weight_consistency']['value']:.3g}"
+        f" (limit 1e-4); mean crossings {c.mean():.5f} (PARITY_r05 on the "
+        f"TPU: 10.60821), mean intra fraction {f.mean():.5f}; "
+        f"fused_exchange_rate_nonzero: 1 / mean crossings = "
+        f"{parity.results['fused_exchange_rate_nonzero']['value']:.5f} "
+        "(limit 10)")
+    if not (run["engine"] == "fused" and launches["fused_epoch"] > 0
+            and launches["mesh_hit"] == 0):
+        raise AssertionError("the tracked fused run must launch fused_epoch "
+                             "only")
     try:
-        for engine in ("fused", "classic"):
-            config.use_fused = engine == "fused"
-            fused_kernel.launches = mesh_kernel.launches = 0
-            t0 = time.perf_counter()
-            sig, stats = simulations.simulation(
-                n, DIFFUSIVITY, g0, dt, sub, quiet=True, seed=7,
-                relaxation=T2_PAIR, exchange_stats=True, device="cuda")
-            wall = time.perf_counter() - t0
-            k1, k2 = fused_kernel.launches, mesh_kernel.launches
-            gap = _weight_gap(sig[0], stats["intra_steps"], n_t, dt)
-            c = stats["crossings"].astype(float)
-            f = stats["intra_fraction"]
-            runs[engine] = dict(c=c, f=f)
-            say(f"exchange cell ({engine}): closed cylinder mesh, perm 0.2, "
-                f"{n} intra spins x {n_t} steps in {wall:.2f} s; "
-                f"{k1} fused_epoch and {k2} mesh_hit launches; weight "
-                f"identity |S - sum w| / sum w = {gap:.3g} (limit 1e-4); "
-                f"mean crossings {c.mean():.5f} (PARITY_r05 on the TPU: "
-                f"10.60821), mean intra fraction {f.mean():.5f}")
-            if engine == "fused" and not (k1 > 0 and k2 == 0):
-                raise AssertionError("the tracked fused run must launch "
-                                     "fused_epoch only")
-            if engine == "classic" and not (k2 > 0 and k1 == 0):
-                raise AssertionError("the tracked classic run must launch "
-                                     "mesh_hit only")
-            if not gap <= 1e-4:
-                raise AssertionError(f"{engine}: relaxation weights do not "
-                                     "match the dwell steps")
+        config.use_fused = False
+        (sig, stats_c), run_c = parity.simulate(
+            n, DIFFUSIVITY, np.zeros((1, n_t, 3)), dt, sub, seed=7,
+            relaxation=T2_PAIR, exchange_stats=True)
     finally:
         config.use_fused = None
-    rate = 1.0 / max(float(runs["fused"]["c"].mean()), 1e-9)
-    say(f"fused_exchange_rate_nonzero: 1 / mean crossings = {rate:.5f} "
-        "(limit 10)")
-    if not rate <= 10.0:
-        raise AssertionError("the permeable membrane does not exchange")
-    for name, key in (("mean crossings", "c"), ("mean intra fraction", "f")):
-        a, b = runs["fused"][key], runs["classic"][key]
+    gap = _weight_gap(sig[0], stats_c["intra_steps"], n_t, dt)
+    launches = run_c["launches"]
+    say(f"exchange cell (classic): {n} intra spins x {n_t} steps in "
+        f"{run_c['wall_s']:.2f} s; {launches['fused_epoch']} fused_epoch and "
+        f"{launches['mesh_hit']} mesh_hit launches; weight identity "
+        f"{gap:.3g} (limit 1e-4)")
+    if not (launches["mesh_hit"] > 0 and launches["fused_epoch"] == 0):
+        raise AssertionError("the tracked classic run must launch mesh_hit "
+                             "only")
+    if not gap <= 1e-4:
+        raise AssertionError("classic: relaxation weights do not match the "
+                             "dwell steps")
+    for name, a, b in (
+            ("mean crossings", c, stats_c["crossings"].astype(float)),
+            ("mean intra fraction", f, stats_c["intra_fraction"])):
         se = math.sqrt(a.var() / len(a) + b.var() / len(b))
         gap = abs(float(a.mean() - b.mean()))
         say(f"fused vs classic {name}: {a.mean():.5f} vs {b.mean():.5f}, "
@@ -1268,40 +1273,21 @@ def exchange_oracles():
         if not gap <= 4 * se:
             raise AssertionError(f"fused and classic {name} disagree")
 
-    sub = substrates.sphere(5e-6, perm_prob=0.3)
-    mesh_kernel.launches = fused_kernel.launches = 0
-    t0 = time.perf_counter()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        sig, pos, stats = simulations.simulation(
-            n, DIFFUSIVITY, g0, dt, sub, quiet=True, seed=7, final_pos=True,
-            relaxation=T2_PAIR, exchange_stats=True, device="cuda")
-    wall = time.perf_counter() - t0
-    gap = _weight_gap(sig[0], stats["intra_steps"], n_t, dt)
-    frac_out = float((np.linalg.norm(pos, axis=1) > 5e-6).mean())
-    say(f"permeable sphere (classic): r 5 um, perm 0.3, {n} spins x {n_t} "
-        f"steps in {wall:.2f} s; weight identity {gap:.3g} (limit 1e-4); "
-        f"fraction outside {frac_out:.5f} (perm_sphere_escape 1 - that = "
-        f"{1 - frac_out:.5f}, limit 1; the JAX package on the TPU: 0.97771 "
-        f"outside); mean crossings {stats['crossings'].mean():.5f}")
-    if not (gap <= 1e-4 and 1.0 - frac_out <= 1.0 and frac_out > 0):
-        raise AssertionError("the permeable sphere misses its checks")
-
-    bfree = np.linspace(1, 2e9, 100)
-    g, dt = gradients.pgse(20e-3, 40e-3, 500, bfree[:10],
-                           np.tile([[1.0, 0, 0]], (10, 1)))
-    t2 = 80e-3
-    base = simulations.simulation(20000, DIFFUSIVITY, g, dt,
-                                  substrates.free(), quiet=True, seed=3,
-                                  device="cuda")
-    weighted = simulations.simulation(20000, DIFFUSIVITY, g, dt,
-                                      substrates.free(), quiet=True, seed=3,
-                                      relaxation=t2, device="cuda")
-    err = float(np.abs(weighted / base - np.exp(-500 * dt / t2)).max())
+    stats, run = runs["sphere"]
+    say(f"permeable sphere ({run['engine']}): r 5 um, perm 0.3, {n} spins x "
+        f"{n_t} steps in {run['wall_s']:.2f} s; weight identity "
+        f"{parity.results['perm_sphere_weight_consistency']['value']:.3g} "
+        f"(limit 1e-4); fraction outside "
+        f"{parity.results['perm_sphere_escape']['frac_outside']:.5f} "
+        f"(perm_sphere_escape 1 - that, limit 1; the JAX package on the "
+        f"TPU: 0.97771 outside); mean crossings "
+        f"{stats['crossings'].mean():.5f}")
     say(f"uniform_t2_exact: free, 2e4 spins x 500 steps x 10 b, max "
-        f"|S_T2 / S - exp(-T / T2)| = {err:.3g} (limit 1e-5)")
-    if not err <= 1e-5:
-        raise AssertionError("uniform T2 is not an exact factor")
+        f"|S_T2 / S - exp(-T / T2)| = "
+        f"{parity.results['uniform_t2_exact']['value']:.3g} (limit 1e-5)")
+    _require(parity, "fused_exchange_weight_consistency",
+             "fused_exchange_rate_nonzero", "perm_sphere_weight_consistency",
+             "perm_sphere_escape", "uniform_t2_exact")
 
 
 def tracked_window():
@@ -1513,23 +1499,21 @@ def split_and_sweeps():
         raise AssertionError("a sweep row differs from its standalone run")
 
 
-def parity_matrix():
+def parity_matrix(parity):
     """Phase 15: the PARITY_r05 checks no other phase runs, through
     scripts/parity_torch.py: the closed cylinder mesh over {periodic} x
     {padding} x {n_sv} against MISST with its radial leak checks (all 24,
     two of them phase 5's), and the neuron leak check at dt 1e-5 (the
     cheapest neuron pack; parity_torch.py runs all three step sizes).
-    Every check must meet its threshold, every fused run must launch the
+    Every check that ``parity`` holds (phases 4, 5, 8 and 11 ran theirs
+    through it) must meet its threshold, every fused run must launch the
     epoch kernel, and each (periodic, padding) pair's three n_sv runs are
     compared bit for bit. One epoch of the kernel is held to its plain
     version on the non-periodic padded run's pack (:func:`_epoch_vs_plain`).
     """
-    sys.path.insert(0, os.path.join(REPO, "scripts"))
-    import parity_torch
-
     from disimpy_tpu_torch.simulations import _effective_epsilon
 
-    parity = parity_torch.Parity("cuda")
+    parity_torch = _parity_torch()
     parity.mesh()
     # One epoch of the kernel against its plain version on the pack the
     # non-periodic padded run used: uniform spins fill the boundary cells,
@@ -1554,8 +1538,9 @@ def parity_matrix():
                f" differ by up to {diff:.3g} (of {parity.n(1e4)} spins): the "
                "fused pack does not depend on n_sv, so only the seeding's "
                "column candidates could differ"))
-    say(f"parity matrix: {len(parity.results)} checks, "
-        f"{len(parity.results) - len(failed)} within their PARITY_r05 "
+    say(f"parity matrix: {len(parity.results)} of the "
+        f"{len(parity_torch.matrix())} PARITY_r05 checks run in phases 4, 5, "
+        f"8, 11 and 15, {len(parity.results) - len(failed)} within their "
         "thresholds")
     if failed or idle:
         raise AssertionError(f"parity checks failed: {failed}; fused runs "
@@ -1678,7 +1663,237 @@ def neuron_workload(bench, smi):
                 and launched == math.ceil(n_c / J)):
             raise AssertionError(f"counting run ({label}) failed")
         runs[label + " counts"] = diag
+    runs.update(substrate=sub, spec=spec, pack_s=t_pack)
     return runs
+
+
+# Epoch lengths phase 17 sweeps (1..engine.fused.MAX_J), and how many
+# readings of K1's time per epoch it takes at each.
+SWEEP_J = (1, 2, 3, 4, 5)
+SWEEP_READINGS = 5
+
+
+def _sweep_widths(spec, sub, scale):
+    """The cell widths either side of the one the pack's search chose on
+    its ladder (1.5 x the widest when it chose the widest)."""
+    from disimpy_tpu_torch.engine import fused
+
+    voxel = np.asarray(sub.voxel_size, dtype=np.float64) * scale
+    ladder = fused.WIDTH_LADDER
+    i = next(k for k, w in enumerate(ladder) if tuple(
+        int(x) for x in np.maximum(1, np.floor(voxel / w))) == spec.n_sv)
+    return (ladder[i - 1] if i else 1.5 * ladder[0]), ladder[i + 1]
+
+
+def _counting_build():
+    """Wraps ``fused._build_table`` to count the tables built: returns (the
+    list it appends to, a function that restores it)."""
+    from disimpy_tpu_torch.engine import fused
+
+    built, build_table = [], fused._build_table
+
+    def counted(*args):
+        built.append(1)
+        return build_table(*args)
+
+    fused._build_table = counted
+    return built, lambda: setattr(fused, "_build_table", build_table)
+
+
+def _bundle_pack(J, width):
+    """Phase 17's bundle pack at (J, width), in a worker process: it fills
+    the pack's disk cache, which the main process reads. Returns (host
+    seconds, tables built: 0 when the disk cache served it)."""
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    from disimpy_tpu_torch.engine import fused
+
+    built, restore = _counting_build()
+    sub, _, _ = _bundle_substrate()
+    t0 = time.perf_counter()
+    try:
+        fused.pack_fused(sub, 1.0 / BUNDLE_STEP, resort_every=J,
+                         cell_steps=width, n_hint=524288.0)
+    except ValueError:
+        pass  # no table fits: the main process finds the cached failure
+    finally:
+        restore()
+    return time.perf_counter() - t0, len(built)
+
+
+class _Packer:
+    """Phase 17's bundle packs, one after another in one worker process
+    (one BLAS thread), started after phase 13 so that their host time
+    passes beside phases 14-16 on one of the host's cores."""
+
+    def __init__(self, points):
+        import multiprocessing
+
+        names = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+        saved = {k: os.environ.get(k) for k in names}
+        os.environ.update({k: "1" for k in names})
+        try:
+            self.pool = multiprocessing.get_context("spawn").Pool(1)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        self.jobs = {p: self.pool.apply_async(_bundle_pack, p)
+                     for p in points}
+
+    def result(self, point):
+        return self.jobs[point].get()
+
+    def stop(self):
+        self.pool.terminate()
+        self.pool.join()
+
+
+def _sweep_point(label, sub, step_l, gradient, dt, smi, J, width, cold):
+    """One (J, width) of phase 17 on one workload: the pack, K1 against
+    its plain version on 16,384 spins, K1's time per epoch at 524,288, a
+    warm-up and a timed run, a 32-step counting run and K1's bound from its
+    counts. ``cold`` is (host seconds, where) of a cold pack made before,
+    or None to pack here. Returns the record."""
+    from disimpy_tpu_torch import simulations
+    from disimpy_tpu_torch.engine import config, fused, fused_kernel
+
+    n, n_t, n_c = 524288, 150, 32
+    scale = 1.0 / step_l
+    config.fused_resort_every, config.fused_cell_steps = J, width
+    built, restore = _counting_build()
+    try:
+        t0 = time.perf_counter()
+        spec = simulations._fused_spec(sub, n, scale, torch.device("cuda"))
+        t_load = time.perf_counter() - t0
+    finally:
+        restore()
+    knob = f"J={J}" + ("" if width is None else f", width {width} steps")
+    if spec is None:
+        raise AssertionError(f"sweep {label}, {knob}: no fused table fits")
+    pack_s, where = cold or (t_load, "here")
+    if not cold and not built:
+        where = "here, from a cache"
+    J_run = spec.resort_every
+    eps = simulations._effective_epsilon(
+        1e-13, scale, float(np.max(sub.voxel_size)) * scale, n_t,
+        torch.float32, False)
+    mb = spec.table.numel() * 4 / 1e6
+    say(f"sweep {label}, {knob}: pack {pack_s:.2f} s host ({where}), "
+        f"{t_load:.2f} s to serve it to simulation(); J requested {J}, "
+        f"chosen {J_run}; n_sv {spec.n_sv}, {spec.table.shape[0]} units, "
+        f"table {mb:.1f} MB")
+    epoch = _epoch_vs_plain(spec, 16384, eps, exact=True)
+    _say_epoch(f"sweep {label}, {knob}: kernel vs plain, 16384 spins x "
+               f"J={J_run}", epoch)
+    inputs, seed_k = _sorted_epoch_inputs(spec, n, seed=11)
+    args = (spec, *inputs, 0, J_run, seed_k, eps, 1000)
+    readings = sorted(
+        _cuda_ms(lambda: fused_kernel.fused_epoch(*args), 20)[0]
+        for _ in range(SWEEP_READINGS))
+    del inputs, args
+    expected = math.ceil(n_t / J_run)
+    walls = {}
+    for run, seed in (("warm-up", 1), ("timed", 2)):
+        fused_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        signals = simulations.simulation(
+            n, DIFFUSIVITY, gradient, dt, sub, seed=seed, quiet=True,
+            device="cuda")
+        torch.cuda.synchronize()
+        walls[run] = time.perf_counter() - t0
+        launched = fused_kernel.launches
+        finite = bool(np.all(np.isfinite(signals)))
+        if launched != expected or not finite:
+            raise AssertionError(
+                f"sweep {label}, {knob}, {run}: {launched} launches "
+                f"(expected {expected}), signals finite: {finite}")
+    diag, launched_c, same = _counted_run(sub, n, n_c, dt, seed=3)
+    units, passes, issued = diag
+    if not (same and 0 < units <= issued
+            and launched_c == math.ceil(n_c / J_run)):
+        raise AssertionError(f"sweep {label}, {knob}: counting run failed")
+    # K1's bound per epoch from the counting run: each launch reads the
+    # table once and each spin's inputs and outputs (as _epoch_vs_plain
+    # counts them), and folds its share of the run's units.
+    n_bytes = (spec.table.numel() * 4 + n * (4 * (6 + 3 * J_run) + 16)
+               + n * (16 * J_run + 1))
+    flops = units * fused.UNIT_TRIS * fused_kernel.FLOPS_PER_TRIANGLE
+    bound_ms, bound_by = bound(n_bytes, flops / launched_c)
+    median = readings[len(readings) // 2]
+    rate = n * n_t / walls["timed"]
+    say(f"sweep {label}, {knob}: K1 {median:.4f} ms per epoch (median of "
+        f"{SWEEP_READINGS} readings of 20 calls, {readings[0]:.4f}-"
+        f"{readings[-1]:.4f}) at {n} sorted uniform spins; runs {n} x {n_t} "
+        f"x 32 meas: warm-up {walls['warm-up']:.3f} s, timed "
+        f"{walls['timed']:.3f} s = {rate:.6g} spin-steps/s ({smi}), "
+        f"{expected} K1 launches each, signals finite; {n_c}-step counting "
+        f"run: {64 * units / (n * n_c):.2f} triangles tested per spin-step, "
+        f"{passes / (n * n_c):.4f} bounce passes per spin-step, fold-lane "
+        f"efficiency {units / issued:.4f}, equal bit for bit without "
+        f"counting; bound {bound_ms:.4f} ms per epoch ({bound_by}: "
+        f"{flops / launched_c:.4g} flops, {n_bytes / 1e6:.1f} MB), lost per "
+        f"run {expected * (median - bound_ms):.1f} ms")
+    return dict(workload=label, J=J, width=width, J_run=J_run,
+                n_sv=list(spec.n_sv), units=int(spec.table.shape[0]),
+                table_mb=mb, pack_s=pack_s, pack_where=where,
+                divergent=epoch["divergent"], k1_ms_16384=epoch["ms"],
+                plain_ms_16384=epoch["plain_ms"], ms=median,
+                ms_range=[readings[0], readings[-1]], launches=expected,
+                warm_s=walls["warm-up"], timed_s=walls["timed"],
+                spin_steps_per_s=rate,
+                tris_per_spin_step=64 * units / (n * n_c),
+                passes_per_spin_step=passes / (n * n_c),
+                efficiency=units / issued, bound_ms=bound_ms,
+                bound_by=bound_by, lost_ms=expected * (median - bound_ms))
+
+
+def sweep_points(spec, sub, scale):
+    """Phase 17's (J, width) points: J = 1..5 with the search, and J = 4
+    at the two cell widths either side of the searched one."""
+    return ([(J, None) for J in SWEEP_J]
+            + [(4, w) for w in _sweep_widths(spec, sub, scale)])
+
+
+def knob_sweep(bench, neuron, smi, packer):
+    """Phase 17: the fused engine's epoch length J (1..5) and two fixed cell
+    widths either side of the searched one (``config.fused_resort_every``,
+    ``config.fused_cell_steps``), on the bench bundle and the neuron, each
+    through ``simulation()`` at full width (:func:`_sweep_point`). The
+    bundle's packs come from ``packer`` (the default one from phase 2),
+    the neuron's are made here (the default one in phase 16). Any J whose
+    K1 diverges from its plain version past the limit, or whose run is not
+    finite, fails the phase."""
+    from disimpy_tpu_torch.engine import config
+
+    step_l, dt = bench["step_l"], bench["dt"]
+    scale = 1.0 / step_l
+    records = []
+    try:
+        for label, (sub, spec, pack_s, phase) in (
+                ("bundle", (bench["substrate"], bench["spec"],
+                            bench["pack_s"], "phase 2")),
+                ("neuron", (neuron["substrate"], neuron["spec"],
+                            neuron["pack_s"], "phase 16"))):
+            for J, width in sweep_points(spec, sub, scale):
+                if (J, width) == (4, None):
+                    cold = (pack_s, phase)
+                elif label == "bundle":
+                    seconds, built = packer.result((J, width))
+                    cold = (seconds, "in a worker process beside phases "
+                            "14-16" + ("" if built else ", from a cache"))
+                else:
+                    cold = None
+                records.append(_sweep_point(label, sub, step_l,
+                                            bench["gradient"], dt, smi, J,
+                                            width, cold))
+    finally:
+        config.fused_resort_every, config.fused_cell_steps = 4, None
+    say("k1 sweep: " + json.dumps(records))
+    return records
 
 
 def main():
@@ -1687,7 +1902,7 @@ def main():
         "mesh MISST", "fused bench", "mesh_hit vs plain", "analytic oracles",
         "classic mesh", "classic bench", "exchange oracles", "tracked window",
         "tracked bench", "split and sweeps", "parity matrix",
-        "neuron workload",
+        "neuron workload", "J and width sweep",
     )
     walls = {}
 
@@ -1699,22 +1914,34 @@ def main():
         return out
 
     smi = timed(phases[0], card)
+    parity = _parity_torch().Parity("cuda")
     timed(phases[1], threefry_check)
     bench = timed(phases[2], bench_setup)
-    kp = timed(phases[3], kernel_vs_plain, bench)
-    timed(phases[4], free_oracle)
-    timed(phases[5], misst_oracle)
-    runs = timed(phases[6], bench_run, bench, smi)
-    mh = timed(phases[7], mesh_hit_vs_plain, bench)
-    timed(phases[8], analytic_oracles)
-    timed(phases[9], classic_mesh)
-    classic = timed(phases[10], classic_bench, bench, smi, runs)
-    timed(phases[11], exchange_oracles)
-    timed(phases[12], tracked_window)
-    timed(phases[13], tracked_bench, bench, smi, runs)
-    timed(phases[14], split_and_sweeps)
-    timed(phases[15], parity_matrix)
-    timed(phases[16], neuron_workload, bench, smi)
+    packer = None
+    try:
+        kp = timed(phases[3], kernel_vs_plain, bench)
+        timed(phases[4], free_oracle, parity)
+        timed(phases[5], misst_oracle, parity)
+        runs = timed(phases[6], bench_run, bench, smi)
+        mh = timed(phases[7], mesh_hit_vs_plain, bench)
+        timed(phases[8], analytic_oracles, parity)
+        timed(phases[9], classic_mesh)
+        classic = timed(phases[10], classic_bench, bench, smi, runs)
+        timed(phases[11], exchange_oracles, parity)
+        timed(phases[12], tracked_window)
+        timed(phases[13], tracked_bench, bench, smi, runs)
+        # Phase 17's bundle packs pass beside phases 14-16, after the
+        # bench runs whose host time phases 6, 10 and 13 report.
+        packer = _Packer([p for p in sweep_points(
+            bench["spec"], bench["substrate"], 1.0 / bench["step_l"])
+            if p != (4, None)])
+        timed(phases[14], split_and_sweeps)
+        timed(phases[15], parity_matrix, parity)
+        neuron = timed(phases[16], neuron_workload, bench, smi)
+        timed(phases[17], knob_sweep, bench, neuron, smi, packer)
+    finally:
+        if packer is not None:
+            packer.stop()
     say(f"phases took {sum(walls.values()):.1f} s in all")
     k1 = kp[524288, 0.0]
     print(json.dumps({"kernels": [

@@ -63,7 +63,8 @@ def load(name):
 
     Returns a :class:`Built` with the ctypes library, the library's path,
     the build's wall time in seconds (0.0 when an existing build was
-    loaded) and nvcc's output.
+    loaded) and nvcc's output (kept beside the library, so an existing
+    build reports the output it was built with).
     """
     src = os.path.join(CSRC_DIR, name + ".cu")
     with open(src, "rb") as f:
@@ -73,8 +74,12 @@ def load(name):
     ).hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     path = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    log_path = path[:-len(".so")] + ".log"
     seconds, log = 0.0, ""
     with _lock_for(name):
+        if os.path.exists(path) and os.path.exists(log_path):
+            with open(log_path) as f:
+                log = f.read()
         if not os.path.exists(path):
             tmp = f"{path}.{os.getpid()}.tmp"
             t0 = time.perf_counter()
@@ -86,5 +91,9 @@ def load(name):
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed to build {src}:\n{log}")
-            os.replace(tmp, path)  # atomic: concurrent builds never collide
+            with open(f"{log_path}.{os.getpid()}.tmp", "w") as f:
+                f.write(log)
+            # Atomic: concurrent builds never collide.
+            os.replace(f"{log_path}.{os.getpid()}.tmp", log_path)
+            os.replace(tmp, path)
     return Built(ctypes.CDLL(path), path, seconds, log)

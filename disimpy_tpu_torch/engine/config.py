@@ -1,8 +1,24 @@
-"""Engine selection and the fused kernel's counting variant.
+"""Engine selection, the fused engine's epoch length and cell width, and
+the fused kernel's counting variant.
 
 ``use_fused``: None or True (use the fused-step mesh engine for float32
 runs without trajectory output), or False (always use the classic
 per-bounce engine).
+
+``fused_resort_every``: epoch length J of the fused engine (steps between
+spin re-sorts; the packed table's dilation depth), 1..``engine.fused.MAX_J``.
+The epoch kernel folds each step's distance-ordered chunk prefix, so a
+longer epoch amortizes the sort/back-permute without paying the full
+last-step dilation on early steps. ``pack_fused`` lowers J when the
+geometry is too dense for its dilation; the kernel runs the J it chose.
+
+``fused_cell_steps``: grid cell width (in step lengths) for the fused
+table, or None to let ``pack_fused`` search its width ladder. Wider cells
+hold more units per row; narrower cells split each fold block's spins over
+more rows (the cost model in ``fused.pack_fused``).
+
+Both knobs key the substrate's fused-spec cache, so a flipped knob never
+serves a stale table.
 
 ``fused_count_units``: when True, a single-part fused run launches the
 counting variant of the epoch kernel and sums its counts into
@@ -11,6 +27,8 @@ bit for bit; the counts cost a little kernel time.
 """
 
 use_fused = None
+fused_resort_every = 4
+fused_cell_steps = None
 fused_count_units = False
 
 

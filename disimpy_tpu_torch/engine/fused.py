@@ -62,6 +62,9 @@ TABLE_BYTES_LIMIT = int(1.5e9)
 # failure only proves no configuration fit THIS search, so a newer search
 # ignores cached failures and retries.
 SEARCH_VERSION = 2
+# Cell widths (step lengths) the pack's search walks, wide to narrow.
+WIDTH_LADDER = (30.0, 20.0, 13.5, 9.0, 6.0, 4.0, 2.83, 2.0, 1.41, 1.0, 0.71,
+                0.5)
 # Kernel geometry the pack's cost model was fitted with (the TPU kernel's
 # lane tile and fold block). Kept so the pack picks the same configuration
 # as the JAX package; refitting the model for the GPU kernel is later work.
@@ -372,8 +375,7 @@ def pack_fused(substrate, scale, resort_every=4, cell_steps=None,
         # Wide-to-narrow: the modeled cost is unimodal in the width, so the
         # search walks downhill from wide cells and stops one step past
         # the minimum.
-        widths = [30.0, 20.0, 13.5, 9.0, 6.0, 4.0, 2.83, 2.0, 1.41,
-                  1.0, 0.71, 0.5]
+        widths = list(WIDTH_LADDER)
     periodic = substrate.periodic
 
     for J in range(resort_every, 0, -1):

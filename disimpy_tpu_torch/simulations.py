@@ -375,17 +375,29 @@ def _mesh_positions(substrate, n_walkers, seed, scale, quiet, dtype, device):
 def _fused_spec(substrate, n_walkers, scale, device):
     """The substrate's fused spec (cached on it), or None when no fused
     configuration fits the geometry (e.g. a step length comparable to the
-    voxel)."""
+    voxel).
+
+    The pack takes ``engine.config.fused_resort_every`` (the largest epoch
+    length J) and ``fused_cell_steps`` (a fixed cell width, or None for the
+    search), and both key the cache. A J outside 1..``fused.MAX_J`` raises
+    ``pack_fused``'s ValueError.
+    """
+    from .engine import config as engine_config
     from .engine import fused
 
+    J = engine_config.fused_resort_every
+    cell_steps = engine_config.fused_cell_steps
+    if not 1 <= J <= fused.MAX_J:
+        raise ValueError(f"resort_every must be in [1, {fused.MAX_J}]")
     cache_key = (
-        "fused-torch", float(scale), fused.quantize_n_hint(n_walkers),
-        str(device),
+        "fused-torch", float(scale), J, cell_steps,
+        fused.quantize_n_hint(n_walkers), str(device),
     )
     if cache_key not in substrate._accel_cache:
         try:
             spec = fused.pack_fused(
-                substrate, scale, n_hint=float(n_walkers), device=device
+                substrate, scale, resort_every=J, cell_steps=cell_steps,
+                n_hint=float(n_walkers), device=device,
             )
         except ValueError:
             spec = None

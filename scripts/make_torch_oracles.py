@@ -32,11 +32,33 @@ prefixed by the run it comes from:
   neuron mesh, non-periodic, n_sv 20^3, on 1,024 points near its surface
   (seeded vertices plus offsets of up to 1 um, seed 19), and its answers.
 
+- ``epoch_*``: the Pallas epoch kernel (``pallas_fused.fused_epoch`` in
+  interpret mode) on the periodic closed cylinder's default pack at the
+  ~1.2 um step of ``tests/test_torch_fused.py``: 1,024 spins uniform in the
+  voxel (``RandomState(0)``), anchor-sorted, with the JAX krng directions
+  of steps 8..11 (seed 12345, epsilon 1e-4): the sorted inputs, and per
+  permeability (0 and 0.5) the positions, iter_exc and transit counts;
+- ``simrun_*``: the fused ``simulation()`` of ``tests/test_torch_simulation.py``
+  (the ``fused_*`` setup without tracking or relaxation) at perm 0 and
+  0.5, signals and final positions, and ``engine.fused.run_window_fused``
+  called as ``simulation()`` calls it at perm 0: positions, phases and
+  iter_exc;
+- ``knob_*``: that ``simulation()`` again under each of the fused engine's
+  two knobs, ``config.fused_resort_every = 2`` and ``config.fused_cell_steps
+  = 2.0``, at perm 0 and 0.5: signals and final positions;
+- ``query_pallas_*``: the Pallas nearest-hit kernel
+  (``pallas_mesh.nearest_hit_pallas`` in interpret mode) on the 700-spin
+  icosphere query of ``tests/test_torch_classic.py`` (``RandomState(1)``):
+  distances and normals.
+
 The inputs are rebuilt the same way by ``tests/test_torch_exchange.py``,
-``tests/test_torch_sweeps.py`` and ``tests/test_torch_nonperiodic.py``;
+``tests/test_torch_sweeps.py``, ``tests/test_torch_nonperiodic.py``,
+``tests/test_torch_fused.py``, ``tests/test_torch_simulation.py``,
+``tests/test_torch_knobs.py`` and ``tests/test_torch_classic.py``;
 rerun this script when the JAX package or those setups change.
 """
 
+import dataclasses
 import os
 import pathlib
 import pickle
@@ -57,8 +79,9 @@ sys.path.insert(0, str(ROOT))
 import jax.numpy as jnp  # noqa: E402
 from jax import lax  # noqa: E402
 
-from disimpy_tpu import gradients, simulations, substrates, sweeps  # noqa: E402
-from disimpy_tpu.engine import config, fused  # noqa: E402
+from disimpy_tpu import gradients, meshes, simulations, substrates, sweeps  # noqa: E402
+from disimpy_tpu.engine import (config, fused, krng, mesh_accel,  # noqa: E402
+                                pallas_fused, pallas_mesh)
 
 OUT = ROOT / "tests" / "oracles" / "jax_reference_runs.npz"
 D = 2e-9
@@ -79,6 +102,13 @@ NP_DT = 70e-3 / 999  # the MISST protocol's step duration
 NP_PADDING = 2e-6
 # The neuron classifier points (tests/test_torch_nonperiodic.py).
 NEURON_POINTS, NEURON_SEED = 1024, 19
+# The epoch kernel case (tests/test_torch_fused.py).
+EPOCH_SPINS, EPOCH_SEED, EPOCH_T_BASE, EPOCH_EPS = 1024, 12345, 8, 1e-4
+EPOCH_STEP = float(np.sqrt(6 * D * 1.2e-4))
+# The fused engine's knobs (tests/test_torch_knobs.py): name -> (J, width).
+KNOBS = {"J2": (2, None), "w2": (4, 2.0)}
+# The nearest-hit query (tests/test_torch_classic.py).
+QUERY_SPINS, QUERY_STEP = 700, float(np.sqrt(6 * D * 8e-5))
 
 
 def nonperiodic_cylinder(mod, mesh, init_pos="intra"):
@@ -132,6 +162,126 @@ def nonperiodic_run(mesh):
                 nonperiodic_g_eff=g_eff, nonperiodic_eps=np.float64(eps),
                 nonperiodic_pos=p, nonperiodic_phases=ph,
                 nonperiodic_iter_exc=exc)
+
+
+def epoch_run(mesh):
+    """The Pallas epoch kernel in interpret mode on 1,024 anchor-sorted
+    spins of the periodic closed cylinder's default pack, at perm 0 and
+    0.5: the sorted inputs and the kernel's outputs."""
+    import tempfile
+
+    sub = substrates.mesh(mesh["vertices"], mesh["faces"], True,
+                          n_sv=np.array([10, 10, 10]), quiet=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = fused.pack_fused(sub, 1 / EPOCH_STEP,
+                                cache_path=os.path.join(tmp, "cyl.pkl"))
+    n, J = EPOCH_SPINS, spec.resort_every
+    voxel = np.asarray(spec.voxel_size)
+    pos = jnp.asarray((np.random.RandomState(0).random_sample((3, n))
+                       * voxel[:, None]).astype(np.float32))
+    cell, start, packed, packed2, shiftvox = fused._cell_keys(spec, pos)
+    ids = jnp.arange(n, dtype=jnp.int32)
+    cell_s, order = lax.sort((cell, ids), num_keys=1)
+    n1n2 = spec.n_sv[1] * spec.n_sv[2]
+    cxi = cell_s // n1n2
+    cyi = (cell_s - cxi * n1n2) // spec.n_sv[2]
+    czi = cell_s - cxi * n1n2 - cyi * spec.n_sv[2]
+    inputs = dict(
+        pos_s=(pos - shiftvox)[:, order], ids_s=order,
+        dirs=jnp.stack([krng.unit_directions(EPOCH_SEED, EPOCH_T_BASE + s,
+                                             order) for s in range(J)]),
+        start_s=start[order], packed_s=packed[order],
+        packed2_s=packed2[order],
+        corner_s=(jnp.stack((cxi, cyi, czi)).astype(jnp.float32)
+                  * spec.sv_width[:, None]),
+    )
+    out = {f"epoch_{k}": v for k, v in inputs.items()}
+    for perm, tag in ((0.0, "p0"), (0.5, "p05")):
+        pspec = dataclasses.replace(
+            spec, perm_prob=jnp.asarray(np.float32(perm)))
+        p, exc, cross = pallas_fused.fused_epoch(
+            pspec, *(inputs[k] for k in ("pos_s", "dirs", "ids_s", "start_s",
+                                         "packed_s", "packed2_s")),
+            fused._run_ends(cell_s), inputs["corner_s"], EPOCH_T_BASE, J,
+            EPOCH_SEED, EPOCH_EPS, 1000, interpret=True,
+        )
+        out.update({f"epoch_pos_{tag}": p, f"epoch_iter_exc_{tag}": exc,
+                    f"epoch_cross_{tag}": cross})
+    return out
+
+
+def fused_substrate(mesh, start, perm):
+    """The periodic closed cylinder seeded at ``start``."""
+    return substrates.mesh(mesh["vertices"], mesh["faces"], True,
+                           init_pos=start, perm_prob=perm,
+                           n_sv=np.array([10, 10, 10]), quiet=True)
+
+
+def simulation_runs(mesh, start):
+    """The fused simulation() of tests/test_torch_simulation.py at perm 0
+    and 0.5, at the default knobs and under each of KNOBS, and the window
+    it runs at perm 0, all in Pallas interpret mode."""
+    out = {}
+    gradient = fused_gradient()
+    try:
+        config.use_fused = True
+        config.pallas_interpret = True
+        for name, (J, width) in [("default", (4, None))] + list(KNOBS.items()):
+            config.fused_resort_every, config.fused_cell_steps = J, width
+            for perm, tag in ((0.0, "p0"), (0.5, "p05")):
+                signals, pos = simulations.simulation(
+                    FUSED_SPINS, D, gradient, FUSED_DT,
+                    fused_substrate(mesh, start, perm), seed=FUSED_SEED,
+                    final_pos=True, quiet=True)
+                prefix = "simrun" if name == "default" else f"knob_{name}"
+                out[f"{prefix}_signals_{tag}"] = signals
+                out[f"{prefix}_pos_{tag}"] = pos
+        config.fused_resort_every, config.fused_cell_steps = 4, None
+        # The window itself, called as simulation() calls it (the same
+        # shapes and static arguments).
+        step_l = np.sqrt(6 * D * FUSED_DT)
+        sub = fused_substrate(mesh, start, 0.0)
+        spec = fused.pack_fused(sub, 1 / step_l, n_hint=float(FUSED_SPINS))
+        g_eff = (gradients.GAMMA * FUSED_DT * step_l) * np.transpose(
+            gradient, (1, 0, 2))
+        eps = simulations._effective_epsilon(
+            1e-13, 1 / step_l, float(np.max(sub.voxel_size)) / step_l,
+            FUSED_STEPS, jnp.float32, False)
+        (p, ph, exc), _ = fused.run_window_fused(
+            spec, jnp.asarray(start.T * (1.0 / step_l), jnp.float32),
+            jnp.zeros((len(gradient), FUSED_SPINS), jnp.float32),
+            jnp.zeros(FUSED_SPINS, bool), jnp.asarray(g_eff, jnp.float32),
+            jnp.arange(0, FUSED_STEPS), jnp.asarray(FUSED_SEED, jnp.int32),
+            jnp.asarray(eps, jnp.float32), jnp.asarray(1000, jnp.int32),
+            interpret=True, track=False, compartments=None, ablate=0,
+            runtime_level=True, count_units=False, fold_unroll=2,
+            contig=True, blkfast=False, align=False, passgate=False,
+        )
+        out.update(window_positions=p, window_phases=ph, window_iter_exc=exc)
+    finally:
+        config.use_fused = None
+        config.pallas_interpret = False
+        config.fused_resort_every, config.fused_cell_steps = 4, None
+    return out
+
+
+def query_run():
+    """The Pallas nearest-hit kernel in interpret mode on the 700-spin
+    icosphere query of tests/test_torch_classic.py."""
+    vertices, faces = meshes.icosphere(radius=5e-6, subdivisions=2)
+    sub = substrates.mesh(vertices, faces, True, n_sv=np.array([4, 4, 4]),
+                          quiet=True)
+    rng = np.random.RandomState(1)
+    voxel = np.asarray(sub.voxel_size) / QUERY_STEP
+    r0 = (rng.random_sample((QUERY_SPINS, 3)) * 1.4 - 0.2) * voxel
+    direction = rng.standard_normal((QUERY_SPINS, 3))
+    direction /= np.linalg.norm(direction, axis=1, keepdims=True)
+    rem = rng.random_sample(QUERY_SPINS)
+    spec = mesh_accel.pack_mesh(sub, 1 / QUERY_STEP, jnp.float32)
+    d, normal = pallas_mesh.nearest_hit_pallas(
+        spec, *(jnp.asarray(x, jnp.float32) for x in (r0, direction, rem)),
+        pallas_mesh.pallas_table(spec), interpret=True)
+    return dict(query_pallas_d=d, query_pallas_n=normal)
 
 
 def fused_gradient():
@@ -196,6 +346,9 @@ def main():
         orientation=ORIENTATION)
 
     out.update(nonperiodic_run(mesh))
+    out.update(epoch_run(mesh))
+    out.update(simulation_runs(mesh, start))
+    out.update(query_run())
 
     with open(ROOT / "tests" / "oracles" / "neuron-model.pkl", "rb") as f:
         neuron = pickle.load(f)

@@ -222,8 +222,11 @@ class Parity:
                     0.01, run)
 
     def analytic(self):
+        """The cylinder and the sphere against MISST at small delta 30 and
+        1 ms. Returns {(kind, delta): (signals, final positions)}."""
         bs = np.linspace(1, 3e9, 100)
         n = self.n(1e5)
+        runs = {}
         for delta in (30, 1):
             g, dt = misst_protocol(delta, bs, self.t(1000))
             for kind in ("cylinder", "sphere"):
@@ -233,9 +236,12 @@ class Parity:
                 sub = (substrates.cylinder(radius=5e-6,
                                            orientation=np.array([0, 0, 1.0]))
                        if kind == "cylinder" else substrates.sphere(5e-6))
-                s, run = self.simulate(n, D, g, dt, sub)
+                (s, pos), run = self.simulate(n, D, g, dt, sub,
+                                              final_pos=True)
                 self.record(f"{kind}_misst_{delta}ms",
                             np.abs(s / n - misst).max(), 0.01, run)
+                runs[kind, delta] = (s, pos)
+        return runs
 
     def mesh(self, periodic=MESH_PERIODIC, padding=MESH_PADDING,
              n_svs=MESH_NSV):
@@ -301,7 +307,9 @@ class Parity:
 
     def exchange(self):
         """Exchange and relaxation: the fused transit counts against the
-        relaxation weights, the permeable analytic sphere, uniform T2."""
+        relaxation weights, the permeable analytic sphere, uniform T2.
+        Returns {"cell": (substrate, exchange stats, run), "sphere":
+        (exchange stats, run)}."""
         with open(ORACLES / "cylinder_mesh_closed.pkl", "rb") as f:
             m = pickle.load(f)
         n, n_t, dt = self.n(1e5), self.t(200), 2e-4
@@ -324,6 +332,7 @@ class Parity:
         self.record("fused_exchange_weight_consistency",
                     weight_gap(sig, stats), 1e-4, run,
                     {"mean_crossings": mean_c})
+        stats_cell, run_cell = stats, run
         self.record("fused_exchange_rate_nonzero", 1.0 / max(mean_c, 1e-9),
                     10.0)
 
@@ -337,6 +346,7 @@ class Parity:
         frac_out = float((np.linalg.norm(pos, axis=1) > 5e-6).mean())
         self.record("perm_sphere_escape", 1.0 - frac_out, 1.0, None,
                     {"frac_outside": frac_out})
+        runs = {"cell": (sub, stats_cell, run_cell), "sphere": (stats, run)}
 
         bfree = np.linspace(1, 2e9, 100)
         g, dt_f = gradients.pgse(20e-3, 40e-3, self.t(500), bfree[:10],
@@ -348,6 +358,7 @@ class Parity:
         self.record("uniform_t2_exact", np.abs(
             weighted / base - np.exp(-g.shape[1] * dt_f / t2)).max(), 1e-5,
             run)
+        return runs
 
     def finish(self, commit=None):
         """Fill ``_meta`` and write the results; returns all_pass."""

@@ -5,7 +5,8 @@
 - The nearest-hit query: the CUDA kernel's plain version
   (``mesh_kernel.nearest_hit_reference``) and the gather query
   (``mesh_accel.nearest_hit``) against the JAX package's Pallas kernel in
-  interpret mode and its XLA query, on one table built by the JAX pack
+  interpret mode (its answer stored by ``scripts/make_torch_oracles.py``)
+  and its XLA query, on one table built by the JAX pack
   and carried over with ``spec_from_numpy``. Hit masks are equal;
   distances agree to 1e-6 step lengths and normals to |dot| = 1 within
   1e-5 (float32); in float64 distances agree to 1e-12.
@@ -35,7 +36,6 @@ from disimpy_tpu import meshes as jmeshes
 from disimpy_tpu import simulations as jsim
 from disimpy_tpu import substrates as jsub
 from disimpy_tpu.engine import mesh_accel as jaccel
-from disimpy_tpu.engine import pallas_mesh
 from disimpy_tpu.engine import rng as jrng
 from disimpy_tpu.engine import specs as jspecs
 from disimpy_tpu.engine import stepping as jstep
@@ -135,15 +135,16 @@ def _assert_same_hits(d_a, n_a, d_b, n_b, rem, d_tol, min_hits=20):
     npt.assert_array_equal(n_a[none], 0.0)
 
 
-def test_query_float32_matches_pallas_and_xla(query_case):
+def test_query_float32_matches_pallas_and_xla(query_case, oracles_dir):
     sub, r0, direction, rem = query_case
     spec_j = jaccel.pack_mesh(sub, 1 / STEP_L, jnp.float32)
     assert spec_j.spans == (1, 1, 1)
     r0_j, dir_j, rem_j = (jnp.asarray(x, jnp.float32)
                           for x in (r0, direction, rem))
-    d_pl, n_pl = pallas_mesh.nearest_hit_pallas(
-        spec_j, r0_j, dir_j, rem_j, pallas_mesh.pallas_table(spec_j),
-        interpret=True)
+    # The Pallas kernel's answer in interpret mode on this query, stored by
+    # scripts/make_torch_oracles.py (query_pallas_*).
+    with np.load(oracles_dir / "jax_reference_runs.npz") as data:
+        d_pl, n_pl = data["query_pallas_d"], data["query_pallas_n"]
     d_x, n_x = jaccel.nearest_hit(spec_j, r0_j, dir_j, rem_j, edge_tol=1e-5)
 
     spec_t = _port_spec(spec_j)

@@ -4,8 +4,10 @@
   the same), keep the on-disk pickle format, and ``spec_from_numpy`` must
   carry a JAX-built pack across unchanged.
 - ``fused_epoch_reference`` (the CUDA kernel's plain torch version) must
-  reproduce the JAX Pallas kernel, run in interpret mode on the CPU, on the
-  same sorted inputs and the same directions: equal ``iter_exc`` and
+  reproduce the JAX Pallas kernel, run in interpret mode on the CPU by
+  ``scripts/make_torch_oracles.py`` (stored as the ``epoch_*`` arrays of
+  ``tests/oracles/jax_reference_runs.npz``), on the same sorted inputs and
+  the same directions: equal ``iter_exc`` and
   transit counts, and positions within 1e-5 step lengths for at least 99%
   of spins (float32 rsqrt/reciprocal may differ by an ulp between torch
   and XLA; measured on this setup: 100% within 2e-6).
@@ -13,20 +15,18 @@
 The CUDA kernel itself runs only on the GPU (``chip_smoke.py``).
 """
 
+import ctypes.util
 import pickle
+import shutil
 
 import numpy as np
 import numpy.testing as npt
 import pytest
 import torch
 
-import jax.numpy as jnp
-
 from disimpy_tpu import meshes as jmesh
 from disimpy_tpu import substrates as jsub
 from disimpy_tpu.engine import fused as jfused
-from disimpy_tpu.engine import krng as jkrng
-from disimpy_tpu.engine import pallas_fused
 from disimpy_tpu_torch import meshes, substrates
 from disimpy_tpu_torch.engine import _build, fused, fused_kernel
 
@@ -123,11 +123,14 @@ def test_spec_from_numpy_round_trip(cylinder_packs):
 
 
 @pytest.fixture(scope="module")
-def epoch_case(cylinder_packs):
+def epoch_case(cylinder_packs, oracles_dir):
     """1024 spins uniform in the cylinder voxel, epoch-sorted as the driver
     sorts them, with the JAX kernel's directions; both engines get the
-    JAX-built table through spec_from_numpy. The JAX kernel runs once per
-    permeability (one interpret-mode compile for both)."""
+    JAX-built table through spec_from_numpy. The JAX kernel's outputs at
+    each permeability come from ``scripts/make_torch_oracles.py``
+    (``epoch_*``), which ran it in interpret mode on the sorted inputs
+    stored beside them; the port's ``epoch_inputs`` must rebuild those
+    inputs bit for bit."""
     _, spec_j, _ = cylinder_packs
     arrays, meta = _numpy_parts(spec_j)
     n, J, seed, t_base, eps = 1024, spec_j.resort_every, 12345, 8, 1e-4
@@ -135,31 +138,22 @@ def epoch_case(cylinder_packs):
     pos = torch.from_numpy((rng.random_sample((3, n))
                             * arrays["voxel_size"][:, None]).astype(np.float32))
     spec0 = fused.spec_from_numpy(arrays, meta, "cpu")
-    order, _, sorted_inputs = fused.epoch_inputs(
+    _, _, sorted_inputs = fused.epoch_inputs(
         spec0, pos, torch.arange(n, dtype=torch.int32), t_base, seed)
     inputs = dict(zip(("pos_s", "dirs", "ids_s", "start_s", "packed_s",
                        "packed2_s", "corner_s"), sorted_inputs))
-    cell_s = fused._cell_keys(spec0, pos)[0][order]
+    with np.load(oracles_dir / "jax_reference_runs.npz") as data:
+        stored = {k: data[k] for k in data.files if k.startswith("epoch_")}
+    for k in ("pos_s", "ids_s", "start_s", "packed_s", "packed2_s",
+              "corner_s"):
+        npt.assert_array_equal(inputs[k].numpy(), stored["epoch_" + k],
+                               err_msg=k)
     # The JAX kernel's own directions, so both engines fold the same rays.
-    ids_j = jnp.asarray(inputs["ids_s"].numpy())
-    inputs["dirs"] = torch.from_numpy(np.stack([
-        np.asarray(jkrng.unit_directions(seed, t_base + s, ids_j))
-        for s in range(J)
-    ]))
-    jax_out = {}
-    for perm in (0.0, 0.5):
-        arrays["perm_prob"] = np.float32(perm)
-        jspec = jfused.FusedMeshSpec(
-            **{k: jnp.asarray(v) for k, v in arrays.items()}, **meta)
-        out = pallas_fused.fused_epoch(
-            jspec, *(jnp.asarray(inputs[k].numpy()) for k in
-                     ("pos_s", "dirs", "ids_s", "start_s", "packed_s",
-                      "packed2_s")),
-            jfused._run_ends(jnp.asarray(cell_s.numpy())),
-            jnp.asarray(inputs["corner_s"].numpy()), t_base, J, seed, eps,
-            1000, interpret=True,
-        )
-        jax_out[perm] = [np.asarray(x) for x in out]
+    assert stored["epoch_dirs"].shape == (J, 3, n)
+    inputs["dirs"] = torch.from_numpy(stored["epoch_dirs"])
+    jax_out = {perm: [stored[f"epoch_{k}_{tag}"]
+                      for k in ("pos", "iter_exc", "cross")]
+               for perm, tag in ((0.0, "p0"), (0.5, "p05"))}
     return arrays, meta, inputs, (t_base, J, seed, eps, 1000), jax_out
 
 
@@ -203,3 +197,33 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     _build.load.cache_clear()
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load("fused_epoch")
+
+
+def test_existing_build_reports_its_nvcc_output(monkeypatch, tmp_path):
+    # A stand-in nvcc that "builds" by copying the C math library and
+    # prints a ptxas line: the second load finds the library and must
+    # report the output it was built with (chip_smoke.py's phase 1 reads
+    # the kernel's registers from it).
+    ctypes.CDLL(ctypes.util.find_library("m"))
+    with open("/proc/self/maps") as f:
+        lib = next(ln.split()[-1] for ln in f if "/libm.so" in ln)
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        'while [ "$1" != "-o" ]; do shift; done\n'
+        f'{shutil.which("cp")} {lib} "$2"\n'
+        'echo "ptxas info    : Used 64 registers"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", str(nvcc.parent))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    _build.load.cache_clear()
+    try:
+        first = _build.load("fused_epoch")
+        _build.load.cache_clear()
+        again = _build.load("fused_epoch")
+    finally:
+        _build.load.cache_clear()
+    assert "Used 64 registers" in first.log and first.seconds > 0
+    assert again.path == first.path and again.seconds == 0.0
+    assert again.log == first.log

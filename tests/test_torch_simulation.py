@@ -1,10 +1,11 @@
 """The port's driver (simulation() and run_window_fused) against the JAX
 package, on the CPU with the kernel's plain torch version.
 
-The JAX side runs its fused engine with the Pallas kernel in interpret
+The JAX side ran its fused engine with the Pallas kernel in interpret
 mode (``config.use_fused = True, config.pallas_interpret = True``), once
-per permeability and sharing one compile. Both engines start from the same
-explicit positions and key their kernels with the same threefry streams;
+per permeability, in ``scripts/make_torch_oracles.py``, which stored the
+outputs in ``tests/oracles/jax_reference_runs.npz``. Both engines start
+from the same explicit positions and key their kernels with the same threefry streams;
 float32 cos/sin of the step directions differ by ~1 ulp between torch and
 XLA, so positions are held to 1e-4 step lengths for at least 99% of spins
 (measured: all spins within 4e-6) and signals to 1e-5 per spin (measured
@@ -24,7 +25,6 @@ import jax.numpy as jnp
 from disimpy_tpu import gradients as jgrad
 from disimpy_tpu import simulations as jsim
 from disimpy_tpu import substrates as jsub
-from disimpy_tpu.engine import config as jconfig
 from disimpy_tpu.engine import fused as jfused
 from disimpy_tpu_torch import gradients, simulations, substrates
 from disimpy_tpu_torch.engine import fused
@@ -61,49 +61,28 @@ def intra_points(oracles_dir):
 
 @pytest.fixture(scope="module")
 def jax_runs(oracles_dir, intra_points):
-    """JAX fused simulation() and run_window_fused at perm 0 and 0.5."""
+    """JAX fused simulation() at perm 0 and 0.5 and the run_window_fused
+    call it makes at perm 0, stored by ``scripts/make_torch_oracles.py``
+    (``simrun_*``, ``window_*``); the window's pack, gradient and epsilon
+    are rebuilt here on the host as the script builds them."""
     vertices, faces = _cylinder_mesh(oracles_dir)
+    with np.load(oracles_dir / "jax_reference_runs.npz") as data:
+        out = {perm: dict(signals=data[f"simrun_signals_{tag}"],
+                          pos=data[f"simrun_pos_{tag}"])
+               for perm, tag in ((0.0, "p0"), (0.5, "p05"))}
+        window = {k: data["window_" + k]
+                  for k in ("positions", "phases", "iter_exc")}
+    step_l = np.sqrt(6 * D * DT)
+    sub = jsub.mesh(vertices, faces, True, init_pos=intra_points,
+                    n_sv=np.array([10, 10, 10]), quiet=True)
     gradient = _gradient()
-    out = {}
-    try:
-        jconfig.use_fused = True
-        jconfig.pallas_interpret = True
-        for perm in (0.0, 0.5):
-            sub = jsub.mesh(vertices, faces, True, init_pos=intra_points,
-                            n_sv=np.array([10, 10, 10]), quiet=True,
-                            perm_prob=perm)
-            signals, pos = jsim.simulation(
-                N_SPINS, D, gradient, DT, sub, seed=SEED, final_pos=True,
-                quiet=True,
-            )
-            out[perm] = dict(signals=signals, pos=pos, substrate=sub)
-        # The window itself, called as simulation() calls it (same shapes
-        # and static arguments: the compile above is reused).
-        step_l = np.sqrt(6 * D * DT)
-        sub = out[0.0]["substrate"]
-        spec = jfused.pack_fused(sub, 1 / step_l, n_hint=float(N_SPINS))
-        g_eff = (jgrad.GAMMA * DT * step_l) * np.transpose(gradient, (1, 0, 2))
-        eps = jsim._effective_epsilon(
-            1e-13, 1 / step_l, float(np.max(sub.voxel_size)) / step_l,
-            N_STEPS, jnp.float32, False)
-        (p, ph, exc), _ = jfused.run_window_fused(
-            spec, jnp.asarray(intra_points.T * (1.0 / step_l), jnp.float32),
-            jnp.zeros((4, N_SPINS), jnp.float32),
-            jnp.zeros(N_SPINS, bool), jnp.asarray(g_eff, jnp.float32),
-            jnp.arange(0, N_STEPS), jnp.asarray(SEED, jnp.int32),
-            jnp.asarray(eps, jnp.float32), jnp.asarray(1000, jnp.int32),
-            interpret=True, track=False, compartments=None, ablate=0,
-            runtime_level=True, count_units=False, fold_unroll=2,
-            contig=True, blkfast=False, align=False, passgate=False,
-        )
-        out["window"] = dict(
-            spec=spec, g_eff=g_eff, eps=eps, step_l=step_l,
-            positions=np.asarray(p), phases=np.asarray(ph),
-            iter_exc=np.asarray(exc),
-        )
-    finally:
-        jconfig.use_fused = None
-        jconfig.pallas_interpret = False
+    spec = jfused.pack_fused(sub, 1 / step_l, n_hint=float(N_SPINS))
+    g_eff = (jgrad.GAMMA * DT * step_l) * np.transpose(gradient, (1, 0, 2))
+    eps = jsim._effective_epsilon(
+        1e-13, 1 / step_l, float(np.max(sub.voxel_size)) / step_l,
+        N_STEPS, jnp.float32, False)
+    out["window"] = dict(spec=spec, g_eff=g_eff, eps=eps, step_l=step_l,
+                         **window)
     return out
 
 
