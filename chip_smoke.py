@@ -8,9 +8,10 @@ the CUDA toolkit:
 Phases, one line each (any failure raises, so the exit code is non-zero):
 
 1. the card (name and power limit from nvidia-smi), torch and CUDA
-   versions, and the builds of ``disimpy_tpu_torch/csrc/fused_epoch.cu``
-   and ``csrc/mesh_hit.cu`` (one nvcc each, started together), with the
-   epoch kernel's default variant held to 64 registers and no spills;
+   versions, and the builds of ``disimpy_tpu_torch/csrc/fused_epoch.cu``,
+   ``csrc/mesh_hit.cu`` and ``csrc/krng_draw.cu`` (one nvcc each, started
+   together), with the epoch kernel's default variant held to 64 registers
+   and no spills;
 2. the kernel's device threefry against ``engine/krng.py``, bit for bit;
 3. the epoch kernel against its plain torch version on the bench bundle's
    pack (J = 4, perm 0 and 0.5; 16,384 sorted spins with equal iter_exc
@@ -122,17 +123,36 @@ Phases, one line each (any failure raises, so the exit code is non-zero):
    32-step counting run (triangles tested and bounce passes per spin-step,
    fold-lane efficiency); and the kernel's bound per epoch from that run's
    units and the table's bytes. The records are printed as one JSON line
-   ("k1 sweep: ...").
+   ("k1 sweep: ...");
+18. the draws and the graph: the draw kernel (``csrc/krng_draw.cu``)
+   against its plain version at 524,288 spins, J = 1..5, float32 and
+   float64: the directions and the bounce uniforms (at one bounce index,
+   and gathered at per-spin indices) bit for bit, both times and the
+   bound, and the SASS instruction tally of the float32 directions kernel
+   (``cuobjdump``); then, on the bundle and on the neuron at 524,288 spins
+   x 150 steps x 32 measurements, graphed runs
+   (``config.fused_cuda_graph``, the default) against eager ones: signals
+   and final positions through ``simulation()``, and the window's
+   positions, phases, iter_exc and trackers, untracked and tracked, bit for
+   bit; walks with the kernel's draws against walks with the plain draws
+   (at most 0.5% of the spins more than 1e-4 step lengths apart); the wall
+   of the first call of the shape (the graphed one captures), the median
+   and range of five timed runs each, the launches per run, and from one
+   torch.profiler run each the device's busy share and the kernels it
+   saw, which must equal the launches the wrappers counted.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the rest
 of the repository beside it, the script fails before printing either.
 """
 
+import collections
 import json
 import math
 import os
 import pickle
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -193,7 +213,7 @@ def card():
 
     from disimpy_tpu_torch.engine import _build
 
-    names = ("fused_epoch", "mesh_hit")
+    names = ("fused_epoch", "mesh_hit", "krng_draw")
     with ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(_build.load, names))
     for name, built in zip(names, builds):
@@ -211,8 +231,6 @@ def card():
 def _check_k1_registers(log):
     """K1's default variant (fused_epoch_kernel<false>) keeps the registers
     it had before the counting variant existed, with no spills."""
-    import re
-
     lines = log.splitlines()
     first = next(i for i, ln in enumerate(lines)
                  if "Compiling entry" in ln and "fused_epoch_kernelILb0E" in ln)
@@ -337,6 +355,27 @@ def _sorted_epoch_inputs(spec, n, seed):
     seed_k = seed ^ spec.seed_salt
     _, _, inputs = fused.epoch_inputs(spec, pos, ids, 0, seed_k)
     return inputs, seed_k
+
+
+def _graph_ms(fn, reps):
+    """Device time of one ``fn()`` in ms, for a call too short to time
+    from the host (the wrapper's host time would be measured): ``reps``
+    calls captured in one CUDA graph, replayed once to warm up, then timed
+    over one replay."""
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def _cuda_ms(fn, reps):
@@ -727,8 +766,7 @@ def _explain_changes(bench, changed, pos0, seed, eps):
     Returns (final replayed positions (k, 3) in m, number reproduced,
     number of crossings at contact lines, number of contact lines).
     """
-    from dataclasses import replace
-
+    from disimpy_tpu_torch import parallel
     from disimpy_tpu_torch.engine import fused
 
     spec, step_l, r = bench["spec"], bench["step_l"], bench["radius"]
@@ -741,9 +779,7 @@ def _explain_changes(bench, changed, pos0, seed, eps):
     kern = [start[None]] + [steps for steps, *_ in fused.epochs(
         spec, start, ids, 0, n_t, seed_k, eps, 1000)]
     kern = torch.cat(kern)[:n_t + 1].cpu()
-    cpu_spec = replace(spec, **{f: getattr(spec, f).cpu() for f in (
-        "table", "cell_start", "cell_packed", "cell_packed2", "voxel_size",
-        "sv_width", "perm_prob")})
+    cpu_spec = parallel.spec_to(spec, torch.device("cpu"))
     gap = torch.zeros(len(changed))
     for t_base in range(0, n_t, J):
         steps = next(fused.epochs(
@@ -776,7 +812,7 @@ def _explain_changes(bench, changed, pos0, seed, eps):
 def bench_run(bench, smi):
     """Phase 6: the bench workload through simulation()."""
     from disimpy_tpu_torch import simulations
-    from disimpy_tpu_torch.engine import fused_kernel
+    from disimpy_tpu_torch.engine import launch_count
 
     n, n_t = 524288, 150
     sub, step_l = bench["substrate"], bench["step_l"]
@@ -790,7 +826,7 @@ def bench_run(bench, smi):
         torch.float32, False)
     runs = {}
     for label, seed in (("warm-up", 1), ("timed", 2)):
-        fused_kernel.launches = 0
+        launch_count.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         signals, pos = simulations.simulation(
@@ -799,10 +835,12 @@ def bench_run(bench, smi):
         )
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launched = fused_kernel.launches
-        if launched != expected:
+        counts = launch_count.counts
+        launched, draws = counts["fused_epoch"], counts["krng_draw"]
+        if launched != expected or draws != expected:
             raise AssertionError(
-                f"{label}: {launched} kernel launches, expected {expected}")
+                f"{label}: {launched} fused_epoch and {draws} krng_draw "
+                f"launches, expected {expected} each")
         if not np.all(np.isfinite(signals)):
             raise AssertionError(f"{label}: non-finite signals")
         pos0 = simulations._uniform_positions(
@@ -822,13 +860,15 @@ def bench_run(bench, smi):
                                  "does not reproduce the run")
         say(f"bench {label}: {n} spins x {n_t} steps x 32 meas in "
             f"{wall:.3f} s = {n * n_t / wall:.6g} spin-steps/s ({smi}); "
-            f"{launched} kernel launches; signals finite; "
+            f"{launched} fused_epoch and {draws} krng_draw launches (full "
+            "epochs replayed from one CUDA graph); signals finite; "
             f"{int(inside.sum())} inside / {int(outside.sum())} outside; "
             f"{len(changed)} compartment changes: {reproduced} reproduced "
             f"by the plain version epoch by epoch, {at_contact} crossings "
             f"within 1.5 steps of the {n_contacts} lines where cylinders "
             "touch across the periodic boundary")
-        runs[label] = dict(wall=wall, launches=launched, changed=len(changed))
+        runs[label] = dict(wall=wall, launches=launched, draws=draws,
+                           changed=len(changed))
     return runs
 
 
@@ -1055,19 +1095,19 @@ def classic_mesh():
     import tempfile
 
     from disimpy_tpu_torch import simulations
-    from disimpy_tpu_torch.engine import mesh_kernel
+    from disimpy_tpu_torch.engine import launch_count
 
     substrate = _closed_cylinder()
     gradient, dt = _misst_gradient(30)
     n = 10000
-    mesh_kernel.launches = 0
+    launch_count.reset()
     t0 = time.perf_counter()
     signals, pos = simulations.simulation(
         n, DIFFUSIVITY, gradient, dt, substrate, final_pos=True, quiet=True,
         dtype="float64", device="cuda",
     )
     wall = time.perf_counter() - t0
-    launched = mesh_kernel.launches
+    launched = launch_count.counts["mesh_hit"]
     misst = np.loadtxt(os.path.join(
         ORACLES,
         "misst_cylinder_signal_smalldelta_30ms_bigdelta_40ms_radius_5um.txt"))
@@ -1091,14 +1131,14 @@ def classic_mesh():
 
     n_s, n_t = 100, 100
     gradient, dt = _misst_gradient(30, n_t)
-    mesh_kernel.launches = 0
+    launch_count.reset()
     with tempfile.TemporaryDirectory() as tmp:
         traj = os.path.join(tmp, "traj.txt")
         _, pos = simulations.simulation(
             n_s, DIFFUSIVITY, gradient, dt, substrate, traj=traj,
             final_pos=True, quiet=True, device="cuda")
         trajectories = np.loadtxt(traj)
-    launched = mesh_kernel.launches
+    launched = launch_count.counts["mesh_hit"]
     if trajectories.shape != (n_t + 1, 3 * n_s):
         raise AssertionError(f"trajectory file shape {trajectories.shape}")
     trajectories = trajectories.reshape(n_t + 1, n_s, 3)
@@ -1122,11 +1162,11 @@ def classic_mesh():
     for label, n_s, kw in (("epsilon 1e-7 m", 64, dict(epsilon=1e-7, dt=1e-4)),
                            ("dt 0.2 s", 8, dict(dt=0.2))):
         sub = _closed_cylinder()
-        mesh_kernel.launches = 0
+        launch_count.reset()
         signals = simulations.simulation(
             n_s, DIFFUSIVITY, gradient[:, :3] if kw["dt"] > 0.1 else gradient,
             substrate=sub, quiet=True, device="cuda", **kw)
-        launched = mesh_kernel.launches
+        launched = launch_count.counts["mesh_hit"]
         classic = any(k[0] == "classic-torch" for k in sub._accel_cache)
         say(f"fused handover ({label}): {n_s} spins, classic engine "
             f"{'used' if classic else 'NOT used'}, {launched} mesh_hit "
@@ -1139,7 +1179,7 @@ def classic_mesh():
 def classic_bench(bench, smi, fused_runs):
     """Phase 10: the bench workload through the classic engine."""
     from disimpy_tpu_torch import simulations
-    from disimpy_tpu_torch.engine import config, fused_kernel, mesh_kernel
+    from disimpy_tpu_torch.engine import config, launch_count
 
     n, n_t = 524288, 150
     sub, step_l = bench["substrate"], bench["step_l"]
@@ -1151,8 +1191,7 @@ def classic_bench(bench, smi, fused_runs):
     try:
         config.use_fused = False
         for label, seed in (("warm-up", 1), ("timed", 2)):
-            mesh_kernel.launches = 0
-            fused_kernel.launches = 0
+            launch_count.reset()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             signals, pos = simulations.simulation(
@@ -1161,12 +1200,13 @@ def classic_bench(bench, smi, fused_runs):
             )
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launched = mesh_kernel.launches
-            if launched <= 0 or fused_kernel.launches:
+            counts = launch_count.counts
+            launched, draws = counts["mesh_hit"], counts["krng_draw"]
+            if launched <= 0 or draws <= 0 or counts["fused_epoch"]:
                 raise AssertionError(
-                    f"{label}: {launched} mesh_hit and {fused_kernel.launches}"
-                    " fused_epoch launches; the classic engine must launch "
-                    "mesh_hit only")
+                    f"{label}: {launched} mesh_hit, {draws} krng_draw and "
+                    f"{counts['fused_epoch']} fused_epoch launches; the "
+                    "classic engine must launch mesh_hit and krng_draw only")
             if not np.all(np.isfinite(signals)):
                 raise AssertionError(f"{label}: non-finite signals")
             pos0 = simulations._uniform_positions(
@@ -1183,10 +1223,11 @@ def classic_bench(bench, smi, fused_runs):
                     "compartment")
             say(f"classic bench {label}: {n} spins x {n_t} steps x 32 meas "
                 f"in {wall:.3f} s = {n * n_t / wall:.6g} spin-steps/s "
-                f"({smi}); {launched} mesh_hit launches; signals finite; "
+                f"({smi}); {launched} mesh_hit and {draws} krng_draw "
+                "launches; signals finite; "
                 f"{len(changed)} compartment changes; fused engine "
                 f"{label} run (phase 6): {fused_runs[label]['wall']:.3f} s")
-            runs[label] = dict(wall=wall, launches=launched,
+            runs[label] = dict(wall=wall, launches=launched, draws=draws,
                                changed=len(changed))
     finally:
         config.use_fused = None
@@ -1297,7 +1338,8 @@ def tracked_window():
     positions agree (within 1e-4 step lengths); at most 0.5% may
     diverge."""
     from disimpy_tpu_torch import simulations
-    from disimpy_tpu_torch.engine import fused, fused_kernel
+    from disimpy_tpu_torch.engine import (config, fused, fused_kernel,
+                                          launch_count)
 
     n, n_t, dt = 16384, 20, 2e-4
     sub = _exchange_cylinder()
@@ -1319,15 +1361,19 @@ def tracked_window():
             torch.zeros((n_t, 1, 3), device="cuda"), range(n_t), 11, eps,
             1000, track=True, compartments=comp)
 
-    fused_kernel.launches = 0
+    launch_count.reset()
     kp, _, _, (kc, _, ki) = run()
-    launched = fused_kernel.launches
+    launched = launch_count.counts["fused_epoch"]
+    # The plain version's run is eager: a replay of the graph the kernel's
+    # run captured would launch the kernel again.
     kernel = fused_kernel.fused_epoch
     fused_kernel.fused_epoch = fused_kernel.fused_epoch_reference
+    config.fused_cuda_graph = False
     try:
         pp, _, _, (pc, _, pi) = run()
     finally:
         fused_kernel.fused_epoch = kernel
+        config.fused_cuda_graph = True
     diverged = (kp - pp).abs().amax(dim=0) > 1e-4
     differ = (kc != pc) | (ki != pi)
     frac = float(diverged.float().mean())
@@ -1350,7 +1396,7 @@ def tracked_bench(bench, smi, fused_runs):
     untracked one with the same seed (equal positions and signals bit for
     bit) and phase 6's timed run."""
     from disimpy_tpu_torch import simulations
-    from disimpy_tpu_torch.engine import fused_kernel
+    from disimpy_tpu_torch.engine import launch_count
 
     sub, step_l = bench["substrate"], bench["step_l"]
     scale = 1.0 / step_l
@@ -1384,7 +1430,7 @@ def tracked_bench(bench, smi, fused_runs):
         # Untracked first: at 131,072 spins it packs (and caches) the
         # bundle for that spin count, so the tracked wall holds no pack.
         for label, track in (("untracked", False), ("tracked", True)):
-            fused_kernel.launches = 0
+            launch_count.reset()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = simulations.simulation(
@@ -1392,8 +1438,8 @@ def tracked_bench(bench, smi, fused_runs):
                 seed=seed, quiet=True, final_pos=True, exchange_stats=track,
                 device="cuda")
             torch.cuda.synchronize()
-            runs[label] = (time.perf_counter() - t0, fused_kernel.launches,
-                           out)
+            runs[label] = (time.perf_counter() - t0,
+                           launch_count.counts["fused_epoch"], out)
     finally:
         simulations._start_parity = start_parity
     wall, launched, (sig_t, pos_t, stats) = runs["tracked"]
@@ -1436,7 +1482,7 @@ def split_and_sweeps():
     run (fused exchange cell and permeable analytic sphere, 1e5 spins x 40
     steps), and a sphere radius sweep against its standalone runs."""
     from disimpy_tpu_torch import simulations, substrates, sweeps
-    from disimpy_tpu_torch.engine import fused_kernel, mesh_kernel
+    from disimpy_tpu_torch.engine import launch_count
 
     n, n_t, dt = 100000, 40, 2e-4
     g0 = np.zeros((1, n_t, 3))
@@ -1445,7 +1491,7 @@ def split_and_sweeps():
                         substrates.sphere(5e-6, perm_prob=0.3))):
         out = {}
         for devices in (None, ["cuda:0", "cuda:0"]):
-            fused_kernel.launches = mesh_kernel.launches = 0
+            launch_count.reset()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = simulations.simulation(
@@ -1454,8 +1500,8 @@ def split_and_sweeps():
                 devices=devices, device=None if devices else "cuda")
             torch.cuda.synchronize()
             out[devices is None] = (time.perf_counter() - t0,
-                                    fused_kernel.launches,
-                                    mesh_kernel.launches, res)
+                                    launch_count.counts["fused_epoch"],
+                                    launch_count.counts["mesh_hit"], res)
         (w1, f1, m1, (s1, p1, st1)), (w2, f2, m2, (s2, p2, st2)) = (
             out[True], out[False])
         equal = (np.array_equal(p1, p2)
@@ -1566,7 +1612,7 @@ def _counted_run(sub, n, n_t, dt, seed):
     launches of the counted run, whether positions and signals are equal
     bit for bit)."""
     from disimpy_tpu_torch import gradients, simulations
-    from disimpy_tpu_torch.engine import config, fused_kernel
+    from disimpy_tpu_torch.engine import config, launch_count
 
     bvals = np.linspace(1e8, 3e9, 32)
     bvecs = np.tile(np.array([[1.0, 0.0, 0.0]]), (32, 1))
@@ -1574,7 +1620,7 @@ def _counted_run(sub, n, n_t, dt, seed):
     out = {}
     for counting in (True, False):
         config.fused_count_units = counting
-        fused_kernel.launches = 0
+        launch_count.reset()
         try:
             out[counting] = simulations.simulation(
                 n, DIFFUSIVITY, gradient, dt, sub, seed=seed, quiet=True,
@@ -1583,7 +1629,7 @@ def _counted_run(sub, n, n_t, dt, seed):
             config.fused_count_units = False
         if counting:
             diag = list(simulations._STREAM_DIAG)
-            launched = fused_kernel.launches
+            launched = launch_count.counts["fused_epoch"]
     same = all(np.array_equal(a, b) for a, b in zip(out[True], out[False]))
     return diag, launched, same
 
@@ -1597,7 +1643,7 @@ def neuron_workload(bench, smi):
     runs on the neuron and on the bundle (bench.py --stream), each equal
     bit for bit to the same run without counting."""
     from disimpy_tpu_torch import simulations
-    from disimpy_tpu_torch.engine import fused_kernel
+    from disimpy_tpu_torch.engine import launch_count
 
     n, n_t, dt = 524288, 150, bench["dt"]
     step_l = bench["step_l"]
@@ -1626,7 +1672,7 @@ def neuron_workload(bench, smi):
                f"J={spec.resort_every}", epoch)
     runs = {}
     for label, seed in (("warm-up", 1), ("timed", 2)):
-        fused_kernel.launches = 0
+        launch_count.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         signals = simulations.simulation(
@@ -1634,7 +1680,7 @@ def neuron_workload(bench, smi):
             quiet=True, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launched = fused_kernel.launches
+        launched = launch_count.counts["fused_epoch"]
         say(f"neuron {label}: {n} spins x {n_t} steps x 32 meas in "
             f"{wall:.3f} s = {n * n_t / wall:.6g} spin-steps/s ({smi}); "
             f"{launched} kernel launches; signals "
@@ -1758,7 +1804,8 @@ def _sweep_point(label, sub, step_l, gradient, dt, smi, J, width, cold):
     counts. ``cold`` is (host seconds, where) of a cold pack made before,
     or None to pack here. Returns the record."""
     from disimpy_tpu_torch import simulations
-    from disimpy_tpu_torch.engine import config, fused, fused_kernel
+    from disimpy_tpu_torch.engine import (config, fused, fused_kernel,
+                                          launch_count)
 
     n, n_t, n_c = 524288, 150, 32
     scale = 1.0 / step_l
@@ -1797,7 +1844,7 @@ def _sweep_point(label, sub, step_l, gradient, dt, smi, J, width, cold):
     expected = math.ceil(n_t / J_run)
     walls = {}
     for run, seed in (("warm-up", 1), ("timed", 2)):
-        fused_kernel.launches = 0
+        launch_count.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         signals = simulations.simulation(
@@ -1805,7 +1852,7 @@ def _sweep_point(label, sub, step_l, gradient, dt, smi, J, width, cold):
             device="cuda")
         torch.cuda.synchronize()
         walls[run] = time.perf_counter() - t0
-        launched = fused_kernel.launches
+        launched = launch_count.counts["fused_epoch"]
         finite = bool(np.all(np.isfinite(signals)))
         if launched != expected or not finite:
             raise AssertionError(
@@ -1896,13 +1943,333 @@ def knob_sweep(bench, neuron, smi, packer):
     return records
 
 
+# The H100 SXM's int32 rate: 64 INT32 lanes per SM (NVIDIA's Hopper
+# architecture white paper) x 132 SMs x 1.98 GHz boost clock. K7's cipher
+# is integer work, which the guide's floating-point peaks do not cover.
+PEAK_FLOPS["int32"] = 64 * 132 * 1.98e9
+# Integer instructions of one spin-step of K7's directions, counted from
+# csrc/threefry.cuh as sm_90 SASS issues them: 13 rounds of add, rotate
+# (one funnel shift) and xor (39), where the x0 key injections fold into
+# the next round's add (one IADD3); the three x1 injections, one IADD3
+# each with their constant (3); the step's key word and the key schedule
+# (2); the two 8-bit shifts of the uniforms (2). All 46 are charged to
+# the INT32 lanes, though adds may also issue on the FMA pipe: the bound
+# this gives is below the bytes' in every case the smoke measures, so the
+# bound is the bytes'.
+K7_INT_OPS = 46
+# Readings of each run in the graph-against-eager comparison.
+GRAPH_READINGS = 5
+
+
+def _sass_tally(path, function):
+    """Counts of each SASS mnemonic in the kernel of the library ``path``
+    whose mangled name contains ``function`` (``cuobjdump -sass``), or
+    None where cuobjdump is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    dump = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    # An instruction: its offset, an optional predicate, the mnemonic.
+    insn = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)")
+    tally, inside = collections.Counter(), False
+    for line in dump.splitlines():
+        if "Function :" in line:
+            inside = function in line
+        elif inside:
+            m = insn.search(line)
+            if m:
+                tally[m.group(1)] += 1
+    return tally
+
+
+def _draw_check():
+    """K7 against its plain version (``engine/krng.py``'s torch operators
+    on the card) at 524,288 spins: directions at J = 1..5 in float32 and
+    float64, and the bounce uniforms (all spins at one bounce index, and a
+    gathered subset at per-spin indices). Every float must be equal bit
+    for bit. Also times each against the plain version and its bound, and
+    tallies the integer instructions of the float32 directions kernel."""
+    from disimpy_tpu_torch.engine import _build, draw_kernel, krng
+
+    n = 524288
+    rng = np.random.RandomState(5)
+    ids_np = rng.randint(-2**31, 2**31, size=n, dtype=np.int64).astype(
+        np.int32)
+    ids_np[:3] = (0, -1, 2**31 - 1)
+    ids = torch.from_numpy(ids_np).cuda()
+    seed, t_base = -1234567, 37
+    scal = draw_kernel.device_scalars((seed, t_base), "cuda")
+    record = {}
+    for dtype in (torch.float32, torch.float64):
+        size = torch.empty((), dtype=dtype).element_size()
+        for J in (1, 2, 3, 4, 5):
+            kernel = draw_kernel.directions_cuda(scal[0], scal[1], J, ids,
+                                                 dtype)
+            plain = krng.unit_directions_epoch(seed, t_base, J, ids, dtype)
+            differ = int((kernel != plain).sum())
+            err = float((kernel - plain).abs().max())
+            ms = _graph_ms(lambda: draw_kernel.directions_cuda(
+                scal[0], scal[1], J, ids, dtype), 50)
+            plain_ms, _ = _cuda_ms(lambda: krng.unit_directions_epoch(
+                seed, t_base, J, ids, dtype), 5)
+            bound_ms, bound_by = bound(3 * J * n * size + 4 * n + 8,
+                                       K7_INT_OPS * J * n, "int32")
+            say(f"krng_draw directions, {str(dtype)[6:]}, J={J}, {n} spins: "
+                f"{differ} of {kernel.numel()} floats differ from the plain "
+                f"version (largest difference {err:.3g}); kernel {ms:.4f} "
+                f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by})")
+            if differ:
+                raise AssertionError(
+                    f"krng_draw directions ({dtype}, J={J}) differ from the "
+                    "plain version")
+            record[str(dtype)[6:], J] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+        idx = torch.from_numpy(rng.permutation(n)[:n // 8]).cuda()
+        bounce = torch.from_numpy(
+            rng.randint(0, 50, size=n // 8).astype(np.int32)).cuda()
+        pairs = (
+            (draw_kernel.uniforms_cuda(scal[0], scal[1], ids, 3, None, dtype),
+             krng.bounce_uniform(seed, t_base, ids, 3, dtype)),
+            (draw_kernel.uniforms_cuda(seed, t_base, ids, bounce, idx, dtype),
+             krng.bounce_uniform(seed, t_base, ids[idx], bounce, dtype)),
+        )
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"krng_draw uniforms ({dtype}) differ from "
+                                 "krng.bounce_uniform")
+        ms = _graph_ms(lambda: draw_kernel.uniforms_cuda(
+            scal[0], scal[1], ids, 3, None, dtype), 50)
+        say(f"krng_draw uniforms, {str(dtype)[6:]}: equal to "
+            f"krng.bounce_uniform bit for bit on {n} spins at one bounce "
+            f"index and on {n // 8} gathered spins at per-spin indices; "
+            f"{ms:.4f} ms for {n}")
+    tally = _sass_tally(_build.load("krng_draw").path, "directions_kernelIf")
+    say("krng_draw SASS of directions_kernel<float>: " + (
+        "not measured (no cuobjdump)" if tally is None else
+        f"{sum(tally.values())} instructions; integer and conversion: "
+        + ", ".join(f"{k} {tally[k]}" for k in (
+            "IADD3", "SHF", "LOP3", "IMAD", "SHL", "SHR", "I2F", "I2FP"))
+        + "; largest: " + ", ".join(
+            f"{k} {v}" for k, v in tally.most_common(8))))
+    return record
+
+
+def _window_inputs(sub, step_l, gradient, dt, n, seed):
+    """A bench-shaped fused window's arguments: uniform starts, the run's
+    g_eff, its effective epsilon, random start parities."""
+    from disimpy_tpu_torch import gradients, simulations
+
+    scale = 1.0 / step_l
+    n_t = gradient.shape[1]
+    spec = simulations._fused_spec(sub, n, scale, torch.device("cuda"))
+    pos0 = simulations._uniform_positions(
+        n, np.asarray(sub.voxel_size) * scale, seed, "cuda")
+    g_eff = torch.as_tensor(
+        (gradients.GAMMA * dt * step_l) * np.transpose(gradient, (1, 0, 2)),
+        dtype=torch.float32, device="cuda")
+    eps = simulations._effective_epsilon(
+        1e-13, scale, float(np.max(sub.voxel_size)) * scale, n_t,
+        torch.float32, False)
+    parity = torch.from_numpy(
+        np.random.RandomState(seed).random_sample(n) < 0.5).cuda()
+    return spec, pos0, g_eff, eps, parity
+
+
+def _window(spec, pos0, g_eff, eps, parity, seed, track):
+    from disimpy_tpu_torch.engine import fused
+
+    n = pos0.shape[1]
+    zeros = torch.zeros(n, dtype=torch.int32, device="cuda")
+    return fused.run_window_fused(
+        spec, pos0, torch.zeros((g_eff.shape[1], n), device="cuda"),
+        torch.zeros(n, dtype=torch.bool, device="cuda"), g_eff,
+        range(g_eff.shape[0]), seed, eps, 1000, track=track,
+        compartments=(zeros, parity, zeros) if track else None)
+
+
+def _flat(out):
+    return [t for o in out for t in (o if isinstance(o, tuple) else (o,))]
+
+
+def _busy_share(run):
+    """One profiled call of ``run``: (device busy ms, wall ms, CUDA kernels
+    and copies seen, the four names with the most device time as (name,
+    ms, count), and {name: count} of every device event); busy time sums
+    each device event's own time (one stream, so they do not overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    by_name = {}
+    for e in device:
+        ms, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.self_device_time_total / 1e3, count + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:4]
+    return (busy, wall, len(device), [(k[:60], ms, c) for k, (ms, c) in top],
+            {k: c for k, (ms, c) in by_name.items()})
+
+
+def _profiled_launches(names):
+    """Kernel launches by the device events' names from :func:`_busy_share`:
+    {wrapper's count name: events of its kernel}."""
+    kernels = {"fused_epoch": "fused_epoch_kernel",
+               "krng_draw": "directions_kernel"}
+    return {k: sum(c for name, c in names.items() if v in name)
+            for k, v in kernels.items()}
+
+
+def _graph_vs_eager(label, sub, step_l, gradient, dt, smi):
+    """Graph against eager (``config.fused_cuda_graph``) on one workload at
+    524,288 spins x 150 steps x 32 measurements: the first call of the
+    shape (for the graphed run: one eager epoch, the capture, the
+    replays), the median of timed runs, the launches the wrappers counted
+    against the kernels the profiler saw, bit-for-bit results."""
+    from disimpy_tpu_torch import simulations
+    from disimpy_tpu_torch.engine import (config, draw_kernel, fused, krng,
+                                          launch_count)
+
+    n = 524288
+    out = {}
+
+    def sim(seed):
+        return simulations.simulation(
+            n, DIFFUSIVITY, gradient, dt, sub, seed=seed, quiet=True,
+            final_pos=True, device="cuda")
+
+    try:
+        for graphed in (True, False):
+            config.fused_cuda_graph = graphed
+            # Earlier phases captured this shape: drop their graphs.
+            torch.cuda.synchronize()
+            fused._GRAPHS.clear()
+            t0 = time.perf_counter()
+            sim(1)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            walls = []
+            for _ in range(GRAPH_READINGS):
+                launch_count.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = sim(2)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            k1 = launch_count.counts["fused_epoch"]
+            k7 = launch_count.counts["krng_draw"]
+            launch_count.reset()
+            busy, wall_ms, events, top, names = _busy_share(lambda: sim(2))
+            out[graphed] = dict(
+                first=first, walls=walls, median=float(np.median(walls)),
+                res=res, k1=k1, k7=k7, counted=dict(launch_count.counts),
+                profiled=_profiled_launches(names), busy_ms=busy,
+                profiled_ms=wall_ms, events=events, top=top)
+        same_sim = all(np.array_equal(a, b)
+                       for a, b in zip(out[True]["res"], out[False]["res"]))
+        # The window itself, untracked and tracked: positions, phases,
+        # iter_exc (and the trackers) bit for bit.
+        args = _window_inputs(sub, step_l, gradient, dt, n, 2)
+        same_window = {}
+        for track in (False, True):
+            runs = {}
+            for graphed in (True, False):
+                config.fused_cuda_graph = graphed
+                runs[graphed] = _flat(_window(*args, 2, track))
+            same_window[track] = all(torch.equal(a, b) for a, b in
+                                     zip(runs[True], runs[False]))
+        # K7's walk against the plain draws' walk (eager: a graph replay
+        # would launch K7 again).
+        config.fused_cuda_graph = False
+        k7_pos = runs[False][0]
+        kernel = draw_kernel.unit_directions_epoch
+        draw_kernel.unit_directions_epoch = krng.unit_directions_epoch
+        try:
+            plain_pos = _flat(_window(*args, 2, True))[0]
+        finally:
+            draw_kernel.unit_directions_epoch = kernel
+        apart = float(((k7_pos - plain_pos).abs().amax(dim=0) > 1e-4)
+                      .double().mean())
+    finally:
+        config.fused_cuda_graph = True
+    g, e = out[True], out[False]
+    say(f"graph vs eager, {label}: {n} spins x {gradient.shape[1]} steps x "
+        f"{gradient.shape[0]} meas; signals and final positions "
+        f"{'equal' if same_sim else 'DIFFERENT'} bit for bit; the window's "
+        "positions, phases and iter_exc "
+        f"{'equal' if same_window[False] else 'DIFFERENT'} untracked, with "
+        f"crossings and intra steps "
+        f"{'equal' if same_window[True] else 'DIFFERENT'} tracked; walks "
+        f"with K7's draws against the plain draws: {apart:.3g} of the spins "
+        "more than 1e-4 step lengths apart (limit 0.005); first call of the "
+        f"shape {g['first']:.4f} s graphed (eager epoch, capture, replays), "
+        f"{e['first']:.4f} s eager; median of {GRAPH_READINGS} runs "
+        f"{g['median']:.4f} s graphed "
+        f"({min(g['walls']):.4f}-{max(g['walls']):.4f}), {e['median']:.4f} s "
+        f"eager ({min(e['walls']):.4f}-{max(e['walls']):.4f}) ({smi}); "
+        f"fused_epoch / krng_draw launches per run {g['k1']} / {g['k7']} "
+        f"graphed, {e['k1']} / {e['k7']} eager; in the profiled run counted "
+        f"{g['counted']['fused_epoch']} / {g['counted']['krng_draw']}, "
+        f"kernels seen by the profiler {g['profiled']['fused_epoch']} / "
+        f"{g['profiled']['krng_draw']} graphed, counted "
+        f"{e['counted']['fused_epoch']} / {e['counted']['krng_draw']}, seen "
+        f"{e['profiled']['fused_epoch']} / {e['profiled']['krng_draw']} "
+        f"eager; one profiled run: device "
+        f"busy {g['busy_ms']:.1f} of {g['profiled_ms']:.1f} ms "
+        f"({g['busy_ms'] / g['profiled_ms']:.3f}) with {g['events']} device "
+        f"events graphed, {e['busy_ms']:.1f} of {e['profiled_ms']:.1f} ms "
+        f"({e['busy_ms'] / e['profiled_ms']:.3f}) with {e['events']} eager; "
+        "most device time, graphed: " + "; ".join(
+            f"{name} {ms:.1f} ms x {count}" for name, ms, count in g["top"]))
+    if not (same_sim and all(same_window.values())):
+        raise AssertionError(f"graph vs eager, {label}: runs differ")
+    if apart > 0.005:
+        raise AssertionError(f"graph vs eager, {label}: K7's walk is "
+                             "further from the plain draws' than allowed")
+    if not (g["k1"] == e["k1"] == g["k7"] == e["k7"] > 0):
+        raise AssertionError(f"graph vs eager, {label}: launch counts differ")
+    for run in (g, e):
+        counted = {k: run["counted"][k] for k in run["profiled"]}
+        if (counted != run["profiled"]
+                or run["profiled"]["fused_epoch"] != g["k1"]):
+            raise AssertionError(
+                f"graph vs eager, {label}: the wrappers counted {counted} "
+                f"launches, the profiler saw {run['profiled']} kernels")
+    return dict(graph=g["median"], eager=e["median"], first=(g["first"],
+                e["first"]), walls=(g["walls"], e["walls"]),
+                launches=g["k1"], apart=apart,
+                busy=(g["busy_ms"] / g["profiled_ms"],
+                      e["busy_ms"] / e["profiled_ms"]))
+
+
+def draws_and_graph(bench, neuron, smi):
+    """Phase 18: the draw kernel K7 against its plain version
+    (:func:`_draw_check`), then graph against eager on the bundle and on
+    the neuron (:func:`_graph_vs_eager`)."""
+    draws = _draw_check()
+    runs = {
+        label: _graph_vs_eager(label, sub, bench["step_l"],
+                               bench["gradient"], bench["dt"], smi)
+        for label, sub in (("bundle", bench["substrate"]),
+                           ("neuron", neuron["substrate"]))
+    }
+    return dict(draws=draws, runs=runs)
+
+
 def main():
     phases = (
         "card", "threefry", "bench setup", "fused kernel vs plain", "free",
         "mesh MISST", "fused bench", "mesh_hit vs plain", "analytic oracles",
         "classic mesh", "classic bench", "exchange oracles", "tracked window",
         "tracked bench", "split and sweeps", "parity matrix",
-        "neuron workload", "J and width sweep",
+        "neuron workload", "J and width sweep", "draws and graph",
     )
     walls = {}
 
@@ -1939,11 +2306,13 @@ def main():
         timed(phases[15], parity_matrix, parity)
         neuron = timed(phases[16], neuron_workload, bench, smi)
         timed(phases[17], knob_sweep, bench, neuron, smi, packer)
+        dg = timed(phases[18], draws_and_graph, bench, neuron, smi)
     finally:
         if packer is not None:
             packer.stop()
     say(f"phases took {sum(walls.values()):.1f} s in all")
     k1 = kp[524288, 0.0]
+    k7 = dg["draws"]["float32", 4]
     print(json.dumps({"kernels": [
         {
             "name": "fused_epoch",
@@ -1970,6 +2339,22 @@ def main():
             "plain_ms": mh["plain_ms"],
             "bound_ms": mh["bound_ms"],
             "bound_by": mh["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "krng_draw",
+            "route": "cuda",
+            "source": "disimpy_tpu_torch/csrc/krng_draw.cu",
+            "replaces": "disimpy_tpu/engine/krng.py:77 (XLA-fused threefry "
+                        "drawn at disimpy_tpu/engine/fused.py:946; no "
+                        "pl.pallas_call)",
+            "launches": runs["timed"]["draws"],
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in dg["draws"].values()),
+            "ms": k7["ms"],
+            "plain_ms": k7["plain_ms"],
+            "bound_ms": k7["bound_ms"],
+            "bound_by": k7["bound_by"],
             "library_ms": None,
         },
     ]}))

@@ -4,6 +4,9 @@ Layout
 ------
 ``krng``
     Counter-based Threefry2x32 streams keyed per (seed, step, spin id).
+``draw_kernel``
+    An epoch's directions or a bounce pass's uniforms on krng streams: the
+    CUDA kernel's binding; krng's functions are its plain versions.
 ``rng``
     The classic engine's draws (step directions, permeability uniforms)
     on krng streams.
@@ -25,12 +28,17 @@ Layout
     Nearest hit per spin on the halo layout: the CUDA kernel's binding and
     its plain torch version.
 ``fused``
-    The fused mesh engine: the table pack (host NumPy) and the epoch driver.
+    The fused mesh engine: the table pack (host NumPy), the epoch body and
+    the window loop, which replays one captured CUDA graph per epoch.
 ``fused_kernel``
     One epoch of mesh physics: the CUDA kernel's binding and its plain
     torch version.
+``launch_count``
+    Launches of each CUDA kernel, counted where its wrapper launches it
+    and, for a captured CUDA graph, at each replay.
 ``_build``
     Builds ``csrc/*.cu`` with nvcc at first use and loads it with ctypes.
 ``config``
-    Engine and query selection.
+    Engine and query selection, the fused engine's knobs and its CUDA
+    graph switch.
 """

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first
 use into a shared library under the package's ``build/`` directory (listed
-in ``.gitignore``), named by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. The
+in ``.gitignore``), named by a hash of the source, the shared headers
+``csrc/*.cuh`` it may include and the flags, so an edited source or header
+is rebuilt and an unchanged one is loaded as it is. The
 library is loaded with ctypes. A missing nvcc or a failed build raises;
 there is no fallback.
 """
@@ -67,11 +68,12 @@ def load(name):
     build reports the output it was built with).
     """
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        code = f.read()
-    digest = hashlib.sha256(
-        code + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     path = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     log_path = path[:-len(".so")] + ".log"

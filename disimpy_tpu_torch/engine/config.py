@@ -24,12 +24,19 @@ serves a stale table.
 counting variant of the epoch kernel and sums its counts into
 ``simulations._STREAM_DIAG`` (see that module). The walks are the same
 bit for bit; the counts cost a little kernel time.
+
+``fused_cuda_graph``: when True (the default), a fused window on a CUDA
+device runs its full epochs as replays of one captured CUDA graph
+(``engine/fused.run_window_fused``); False runs every epoch eagerly, the
+same kernels launched from Python one by one, which gives the same values
+bit for bit and serves to compare the two. CPU runs are always eager.
 """
 
 use_fused = None
 fused_resort_every = 4
 fused_cell_steps = None
 fused_count_units = False
+fused_cuda_graph = True
 
 
 def mesh_engine(dtype, needs_traj):

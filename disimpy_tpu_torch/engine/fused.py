@@ -25,17 +25,22 @@ The host half (``pack_fused`` and its helpers) is the JAX package's NumPy
 code unchanged, so the packed arrays are bitwise those of the JAX pack, and
 its on-disk cache format is the same (in a cache directory of this
 package's own). On the device, the epoch sort is one stable ``torch.sort``
-of the cell keys plus index gathers, and the kernel's per-step positions
-are scattered back to canonical spin order by the same permutation.
+of the cell keys plus index gathers, the epoch's directions one launch of
+the draw kernel (``engine/draw_kernel.py``), and the kernel's per-step
+positions are scattered back to canonical spin order by the same
+permutation. That whole epoch is one function (:func:`epoch_body`); on a
+CUDA device a window replays it as one captured CUDA graph per full epoch,
+as the JAX package runs its window as one compiled program.
 """
 
+import collections
 import dataclasses
 import math
+import threading
+import weakref
 
 import numpy as np
 import torch
-
-from . import krng
 
 # Per-step unit-count bit width and the maximum epoch length it allows.
 BITS = 6
@@ -111,6 +116,9 @@ class FusedMeshSpec:
         () float32 transmission probability per collision.
     n_sv : tuple[int, int, int]
         Cell counts.
+    n_sv_t : torch.Tensor
+        (3,) int32: ``n_sv`` on the spec's device, so the epoch's cell keys
+        need no host copy (none is allowed inside a CUDA graph capture).
     resort_every : int
         Epoch length J (steps between sorts); also the dilation depth the
         table was built for.
@@ -131,6 +139,7 @@ class FusedMeshSpec:
     sv_width: torch.Tensor
     perm_prob: torch.Tensor
     n_sv: tuple
+    n_sv_t: torch.Tensor
     resort_every: int
     seed_salt: int
     eps_budget: float
@@ -164,9 +173,11 @@ def spec_from_numpy(arrays, meta, device):
     }
     if tensors["table"].ndim != 3 or tensors["table"].shape[1:] != (8, 128):
         raise ValueError("table must have shape (units, 8, 128)")
+    n_sv = tuple(int(x) for x in meta["n_sv"])
     return FusedMeshSpec(
         **tensors,
-        n_sv=tuple(int(x) for x in meta["n_sv"]),
+        n_sv=n_sv,
+        n_sv_t=torch.tensor(n_sv, dtype=torch.int32, device=device),
         resort_every=int(meta["resort_every"]),
         seed_salt=int(meta["seed_salt"]),
         eps_budget=float(meta["eps_budget"]),
@@ -627,10 +638,10 @@ def _build_table(tri, aabb_min, aabb_max, n_sv, sv_width, voxel_size, dil,
 
 def _cell_keys(spec, positions):
     """Anchor keys and per-spin row metadata from true (3, n) positions."""
-    n_sv = torch.tensor(spec.n_sv, dtype=torch.int32, device=positions.device)
+    n_sv = spec.n_sv_t[:, None]
     base = torch.floor(positions / spec.sv_width[:, None]).to(torch.int32)
-    shift = torch.div(base, n_sv[:, None], rounding_mode="floor")
-    wrapped = base - shift * n_sv[:, None]
+    shift = torch.div(base, n_sv, rounding_mode="floor")
+    wrapped = base - shift * n_sv
     cell = (wrapped[0] * spec.n_sv[1] + wrapped[1]) * spec.n_sv[2] + wrapped[2]
     shiftvox = shift.to(positions.dtype) * spec.voxel_size[:, None]
     idx = cell.long()
@@ -642,12 +653,17 @@ def epoch_inputs(spec, positions, ids, t_base, seed_k):
     """Sort spins by anchor cell and build the kernel's inputs for one epoch.
 
     ``positions`` (3, n) float32 true coordinates and ``ids`` (n,) int32
-    spin ids; ``seed_k`` the kernel RNG key (simulation seed ^ salt).
-    Returns ``(order, shiftvox_s, inputs)``: the stable sort permutation,
-    the sorted periodic-image offsets (3, n), and the tuple
-    ``(pos_s, dirs, ids_s, start_s, packed_s, packed2_s, corner_s)`` of
-    :func:`fused_kernel.fused_epoch` arguments in sorted order.
+    spin ids; ``t_base`` the epoch's first step and ``seed_k`` the kernel
+    RNG key (simulation seed ^ salt), Python ints or 0-d int32 tensors on
+    the spins' device. Returns ``(order, shiftvox_s, inputs)``: the stable
+    sort permutation, the sorted periodic-image offsets (3, n), and the
+    tuple ``(pos_s, dirs, ids_s, start_s, packed_s, packed2_s, corner_s)``
+    of :func:`fused_kernel.fused_epoch` arguments in sorted order. The
+    epoch's directions are one call of the draw kernel
+    (``engine/draw_kernel.py``).
     """
+    from . import draw_kernel
+
     J = spec.resort_every
     n1n2 = spec.n_sv[1] * spec.n_sv[2]
     cell, start, packed, packed2, shiftvox = _cell_keys(spec, positions)
@@ -663,9 +679,7 @@ def epoch_inputs(spec, positions, ids, t_base, seed_k):
         torch.stack((cxi, cyi, czi)).to(torch.float32) * spec.sv_width[:, None]
     )
     # Per-step unit directions for the whole epoch (id-keyed streams).
-    dirs = torch.stack([
-        krng.unit_directions(seed_k, t_base + s, ids_s) for s in range(J)
-    ])
+    dirs = draw_kernel.unit_directions_epoch(seed_k, t_base, J, ids_s)
     inputs = (
         (positions - shiftvox)[:, order].contiguous(), dirs, ids_s,
         start[order].contiguous(), packed[order].contiguous(),
@@ -674,9 +688,137 @@ def epoch_inputs(spec, positions, ids, t_base, seed_k):
     return order, shiftvox[:, order], inputs
 
 
+@dataclasses.dataclass
+class EpochState:
+    """What one epoch reads and updates in place, in canonical spin order.
+
+    ``positions`` (3, n) float32 true coordinates, ``ids`` (n,) int32 spin
+    ids, ``iter_exc`` (n,) bool; ``scalars`` (4,) int32: the kernel RNG key
+    (simulation seed ^ salt), the epoch's first step, its steps inside the
+    window and its index, which :func:`epoch_body` advances by ``advance``
+    ((0, J, 0, 1)) at its end. Optional: ``phases`` (n_meas, n) with ``g``
+    (n_epochs, n_meas, 3J), the window's phase coefficients per epoch;
+    ``compartments`` (crossings, parity, intra_steps); ``counts`` (3,)
+    int64, the counting kernel's sums.
+    """
+
+    positions: torch.Tensor
+    ids: torch.Tensor
+    iter_exc: torch.Tensor
+    scalars: torch.Tensor
+    advance: torch.Tensor
+    phases: torch.Tensor = None
+    g: torch.Tensor = None
+    compartments: tuple = None
+    counts: torch.Tensor = None
+
+    @classmethod
+    def like(cls, J, positions, iter_exc, phases=None, g=None,
+             compartments=None, count=False):
+        """Empty buffers of the given tensors' shapes and devices."""
+        from .draw_kernel import device_scalars
+
+        device = positions.device
+        opt = (lambda t: None if t is None else torch.empty_like(t))
+        return cls(
+            positions=torch.empty_like(positions),
+            ids=torch.empty(positions.shape[1], dtype=torch.int32,
+                            device=device),
+            iter_exc=torch.empty_like(iter_exc),
+            scalars=torch.empty(4, dtype=torch.int32, device=device),
+            advance=device_scalars((0, J, 0, 1), device),
+            phases=opt(phases), g=opt(g),
+            compartments=None if compartments is None else tuple(
+                torch.empty_like(c) for c in compartments),
+            counts=(torch.empty(3, dtype=torch.int64, device=device)
+                    if count else None),
+        )
+
+    def load(self, positions, ids, iter_exc, seed_k, t0, J, phases=None,
+             g=None, compartments=None):
+        """Copy a window's start into the buffers, with the scalars
+        (seed_k, t0, J, 0) and the counts at zero."""
+        from .draw_kernel import device_scalars
+
+        device = self.positions.device
+        self.positions.copy_(positions)
+        self.ids.copy_(ids)
+        self.iter_exc.copy_(iter_exc)
+        self.scalars.copy_(device_scalars((seed_k, t0, J, 0), device))
+        for mine, theirs in ((self.phases, phases), (self.g, g)):
+            if mine is not None:
+                mine.copy_(theirs)
+        if self.compartments is not None:
+            for mine, theirs in zip(self.compartments, compartments):
+                mine.copy_(theirs)
+        if self.counts is not None:
+            self.counts.zero_()
+
+
+def epoch_body(spec, st, n_valid, epsilon, max_iter):
+    """Run one epoch on the :class:`EpochState` ``st``, in place.
+
+    Sorts the spins by anchor cell, draws the epoch's directions (one
+    draw-kernel call), runs the epoch kernel, scatters its per-step
+    positions, iter_exc and transits back to canonical order by the sort
+    permutation, and folds them into ``st``: iter_exc ``|=``, the phase
+    delta ``g[epoch] @ steps`` (one (n_meas, 3J) x (3J, n) product, the
+    epoch's coefficients read through the device index), the trackers
+    (:func:`fold_transits`) and the counts; then the next epoch's start
+    positions, and the scalars advance. ``n_valid`` (a Python int) must
+    equal ``st.scalars[2]``.
+
+    Nothing here syncs the host or copies from host memory, so one call
+    can be captured into a CUDA graph and replayed (:func:`run_window_fused`).
+
+    Returns the epoch's per-step true positions (J, 3, n), its iter_exc
+    (n,) and transits (J, n), all in canonical order, and its fold counts
+    summed over the spins ((3,) int64) or None when ``st`` counts nothing.
+    """
+    from . import fused_kernel
+
+    J = spec.resort_every
+    seed_k, t_base = st.scalars[0], st.scalars[1]
+    order, shiftvox_s, inputs = epoch_inputs(
+        spec, st.positions, st.ids, t_base, seed_k)
+    pos_steps, exc_s, cross_s, *counts = fused_kernel.fused_epoch(
+        spec, *inputs, t_base, st.scalars[2], seed_k, epsilon, max_iter,
+        count=st.counts is not None,
+    )
+    steps = torch.empty_like(pos_steps)
+    steps[:, :, order] = pos_steps + shiftvox_s[None]
+    exc = torch.empty_like(exc_s)
+    exc[order] = exc_s
+    cross = torch.empty_like(cross_s)
+    cross[:, order] = cross_s
+    st.iter_exc |= exc
+    if st.phases is not None:
+        g = st.g.index_select(0, st.scalars[3:])[0]
+        st.phases += g @ steps.reshape(3 * J, -1)
+    if st.compartments is not None:
+        for mine, new in zip(st.compartments,
+                             fold_transits(st.compartments, cross, n_valid)):
+            mine.copy_(new)
+    epoch_counts = None
+    if st.counts is not None:
+        epoch_counts = torch.stack(
+            [c.sum(dtype=torch.int64) for c in counts[0]])
+        st.counts += epoch_counts
+    st.positions.copy_(steps[-1])
+    st.scalars += st.advance
+    return steps, exc, cross, epoch_counts
+
+
+def _set_valid(st, n_valid, J):
+    """Point ``st.scalars[2]`` at a trailing partial epoch's steps."""
+    if n_valid != J:
+        st.scalars[2:3].fill_(n_valid)
+
+
 def epochs(spec, positions, ids, t0, n_t, seed_k, epsilon, max_iter,
            count=False):
-    """Run the steps t0 .. t0 + n_t - 1 epoch by epoch through the kernel.
+    """Run the steps t0 .. t0 + n_t - 1 epoch by epoch (:func:`epoch_body`,
+    eagerly).
 
     ``positions`` (3, n) float32 true coordinates and ``ids`` (n,) int32
     spin ids (they key each spin's streams) on the spec's device;
@@ -689,35 +831,18 @@ def epochs(spec, positions, ids, t0, n_t, seed_k, epsilon, max_iter,
     yields, last, the kernel's fold counts summed over the spins: a (3,)
     int64 tensor of units folded, bounce passes and units issued
     (``fused_kernel.fused_epoch``).
-
-    Each epoch sorts the spins by anchor cell (one stable ``torch.sort``,
-    :func:`epoch_inputs`), and the kernel's outputs are scattered back by
-    the same permutation.
     """
-    from . import fused_kernel
-
     J = spec.resort_every
+    exc0 = torch.zeros(positions.shape[1], dtype=torch.bool,
+                       device=positions.device)
+    st = EpochState.like(J, positions, exc0, count=count)
+    st.load(positions, ids, exc0, seed_k, t0, J)
     for t_base in range(t0, t0 + n_t, J):
         n_valid = min(t0 + n_t - t_base, J)
-        order, shiftvox_s, inputs = epoch_inputs(
-            spec, positions, ids, t_base, seed_k
-        )
-        pos_steps, exc_s, cross_s, *counts = fused_kernel.fused_epoch(
-            spec, *inputs, t_base, n_valid, seed_k, epsilon, max_iter,
-            count=count,
-        )
-        steps = torch.empty_like(pos_steps)
-        steps[:, :, order] = pos_steps + shiftvox_s[None]
-        exc = torch.empty_like(exc_s)
-        exc[order] = exc_s
-        cross = torch.empty_like(cross_s)
-        cross[:, order] = cross_s
-        if count:
-            yield steps, exc, cross, n_valid, torch.stack(
-                [c.sum(dtype=torch.int64) for c in counts[0]])
-        else:
-            yield steps, exc, cross, n_valid
-        positions = steps[-1]
+        _set_valid(st, n_valid, J)
+        steps, exc, cross, counts = epoch_body(
+            spec, st, n_valid, epsilon, max_iter)
+        yield (steps, exc, cross, n_valid) + ((counts,) if count else ())
 
 
 def fold_transits(compartments, cross, n_valid):
@@ -735,6 +860,82 @@ def fold_transits(compartments, cross, n_valid):
     return (crossings + prefix[n_valid - 1],
             (after[-1] != 0),
             intra + after.sum(dim=0, dtype=torch.int32))
+
+
+class _EpochGraph:
+    """One full epoch of one window shape captured as a CUDA graph, with
+    the :class:`EpochState` it reads and writes (its static buffers), the
+    graph's own memory pool and the kernel launches one replay makes.
+    ``lock`` is held while a window uses it."""
+
+    def __init__(self, state):
+        self.state = state
+        self.graph = None
+        self.tally = None
+        self.lock = threading.Lock()
+
+    def run(self, spec, n_full, epsilon, max_iter):
+        """Run ``n_full`` full epochs on the loaded state by graph replay.
+
+        The first use runs one epoch eagerly (it builds and loads the
+        kernels and makes the quad-major table copy, none of which may
+        happen inside a capture), then captures the next on a stream of
+        its own; a capture that fails raises. Each replay counts the
+        kernel launches that the capture recorded
+        (``engine/launch_count.py``).
+        """
+        from . import fused_kernel, launch_count
+
+        J = spec.resort_every
+        done = 0
+        if self.graph is None:
+            epoch_body(spec, self.state, J, epsilon, max_iter)
+            done = 1
+            fused_kernel.quad_major(spec.table)
+            graph = torch.cuda.CUDAGraph()
+            device = self.state.positions.device
+            # One capture at a time: capture begins with a device
+            # synchronize and empty_cache(), which must not fall inside
+            # another thread's capture.
+            with _CAPTURE_LOCK, launch_count.capture() as tally, \
+                    torch.cuda.device(device), torch.cuda.graph(
+                        graph, stream=torch.cuda.Stream(device),
+                        capture_error_mode="thread_local"):
+                epoch_body(spec, self.state, J, epsilon, max_iter)
+            self.graph, self.tally = graph, tally
+        for _ in range(done, n_full):
+            self.graph.replay()
+            launch_count.replayed(self.tally)
+
+
+_CAPTURE_LOCK = threading.Lock()
+# Captured epochs by id of their spec, then by window shape, the most
+# recently used last. A spec keeps at most _GRAPHS_PER_SPEC shapes (the
+# two parts of a split run on one card use two); its entries (graphs,
+# pools, static buffers) go when the spec does.
+_GRAPHS = {}
+_GRAPHS_PER_SPEC = 2
+_GRAPHS_LOCK = threading.Lock()
+
+
+def _epoch_graph(spec, key, make_state):
+    with _GRAPHS_LOCK:
+        per_spec = _GRAPHS.get(id(spec))
+        if per_spec is None:
+            per_spec = _GRAPHS[id(spec)] = collections.OrderedDict()
+            weakref.finalize(spec, _GRAPHS.pop, id(spec), None)
+        entry = per_spec.pop(key, None) or _EpochGraph(make_state())
+        per_spec[key] = entry
+        for old in list(per_spec)[:-_GRAPHS_PER_SPEC]:
+            # A shape in use by another window stays until a later call.
+            if per_spec[old].lock.acquire(blocking=False):
+                victim = per_spec.pop(old)
+                device = victim.state.positions.device
+                if device.type == "cuda":
+                    # Its last replays may still be queued on the device.
+                    torch.cuda.synchronize(device)
+                victim.lock.release()
+        return entry
 
 
 def run_window_fused(spec, positions, phases, iter_exc, g_eff, ts, seed32,
@@ -761,12 +962,18 @@ def run_window_fused(spec, positions, phases, iter_exc, g_eff, ts, seed32,
     units issued; see :func:`epochs`), returned last. int64 keeps a long
     window from overflowing (the JAX package sums them in int32).
 
-    Positions, phases, iter_exc and the trackers stay in canonical spin
-    order (see :func:`epochs`); each epoch's phase delta is one
-    (n_meas, 3J) x (3J, n) matrix product.
+    Every epoch is one :func:`epoch_body`. On a CUDA device with
+    ``config.fused_cuda_graph`` (the default) the full epochs are replays
+    of one captured CUDA graph, kept per (spec, spins, measurements,
+    epochs, id_base, epsilon, max_iter, track, count) for the spec's
+    ``_GRAPHS_PER_SPEC`` most recent shapes, so no Python runs between
+    their kernels; a trailing partial epoch runs
+    eagerly. Otherwise, and on the CPU, every epoch runs eagerly. Both give
+    the same values bit for bit. The arguments are not modified.
 
     Returns ``(positions, phases, iter_exc)`` [, compartments] [, counts].
     """
+    from . import config
     from .core import require_full_fp32
 
     require_full_fp32()
@@ -777,27 +984,54 @@ def run_window_fused(spec, positions, phases, iter_exc, g_eff, ts, seed32,
     n = positions.shape[1]
     n_t = len(ts)
     m = phases.shape[0]
-    ids = id_base + torch.arange(n, dtype=torch.int32, device=positions.device)
     # Pad the window's phase coefficients to whole epochs (zero rows
     # accumulate zero delta for the trailing partial epoch).
+    n_full = n_t // J
     n_epochs = -(-n_t // J)
     g_pad = torch.zeros((n_epochs * J, m, 3), dtype=g_eff.dtype,
                         device=g_eff.device)
     g_pad[:n_t] = g_eff
     g_flat = g_pad.reshape(n_epochs, J, m, 3).permute(0, 2, 1, 3).reshape(
         n_epochs, m, 3 * J)
-    total = torch.zeros(3, dtype=torch.int64, device=positions.device)
-    for e, (steps, exc, cross, n_valid, *counts) in enumerate(epochs(
-        spec, positions, ids, int(ts[0]), n_t, int(seed32) ^ spec.seed_salt,
-        epsilon, max_iter, count=count,
-    )):
-        iter_exc = iter_exc | exc
-        phases = phases + g_flat[e] @ steps.reshape(3 * J, n)
-        positions = steps[-1]
+    compartments = compartments if track else None
+
+    def make_state():
+        return EpochState.like(J, positions, iter_exc, phases, g_flat,
+                               compartments, count)
+
+    graphed = (positions.device.type == "cuda" and config.fused_cuda_graph
+               and n_full > 0)
+    if graphed:
+        entry = _epoch_graph(spec, (
+            n, m, n_epochs, int(id_base), float(epsilon), int(max_iter),
+            track, count), make_state)
+        entry.lock.acquire()
+        st = entry.state
+    else:
+        st = make_state()
+    try:
+        ids = id_base + torch.arange(n, dtype=torch.int32,
+                                     device=positions.device)
+        st.load(positions, ids, iter_exc, int(seed32) ^ spec.seed_salt,
+                int(ts[0]), J, phases, g_flat, compartments)
+        done = 0
+        if graphed:
+            entry.run(spec, n_full, epsilon, max_iter)
+            done = n_full
+        for e in range(done, n_epochs):
+            n_valid = min(n_t - e * J, J)
+            _set_valid(st, n_valid, J)
+            epoch_body(spec, st, n_valid, epsilon, max_iter)
+        out = [st.positions, st.phases, st.iter_exc]
         if track:
-            compartments = fold_transits(compartments, cross, n_valid)
+            out.append(st.compartments)
         if count:
-            total += counts[0]
-    return ((positions, phases, iter_exc)
-            + ((compartments,) if track else ())
-            + ((total,) if count else ()))
+            out.append(st.counts)
+        if graphed:
+            # The static buffers serve the next window of this shape.
+            out = [tuple(t.clone() for t in o) if isinstance(o, tuple)
+                   else o.clone() for o in out]
+        return tuple(out)
+    finally:
+        if graphed:
+            entry.lock.release()

@@ -23,12 +23,11 @@ spins). Units folded over units issued is the fold-lane efficiency.
 """
 
 import ctypes
-import threading
 import weakref
 
 import torch
 
-from . import krng
+from . import draw_kernel, krng, launch_count
 from .fused import (BITS, EPS_BOUNCES, FINE_LADDER, MAX_J, _dilations)
 
 EDGE_TOL = 1e-5  # barycentric leak-proofing tolerance (f32)
@@ -40,19 +39,6 @@ REQ_MARGIN = 0.05
 # Spins per chunk of the plain version: bounds its per-pass gathers.
 _CHUNK = 4096
 
-# Kernel launches since import (or since a caller reset it): counts only
-# where the CUDA kernel is launched, so a run can show that its main path
-# went through the kernel.
-launches = 0
-# Guards the counts: the parts of a split run launch from several threads.
-_count_lock = threading.Lock()
-
-
-def _count_launch():
-    global launches
-    with _count_lock:
-        launches += 1
-
 # Spins per warp of the kernel (eight lanes each): the unit of the issued
 # count.
 SPINS_PER_WARP = 4
@@ -62,26 +48,18 @@ FLOPS_PER_TRIANGLE = 40
 
 
 class EpochParams(ctypes.Structure):
-    """Scalars of one launch; field for field the ``EpochParams`` struct of
-    ``csrc/fused_epoch.cu``."""
+    """Scalars of one launch that stay fixed over a window; field for field
+    the ``EpochParams`` struct of ``csrc/fused_epoch.cu``. The RNG key, the
+    first step and the valid steps are read from device memory."""
 
     _fields_ = [
         ("n", ctypes.c_int),
         ("J", ctypes.c_int),
-        ("n_valid", ctypes.c_int),
-        ("seed", ctypes.c_int),
-        ("t_base", ctypes.c_int),
         ("max_iter", ctypes.c_int),
         ("eps", ctypes.c_float),
         ("dil", ctypes.c_float * MAX_J),
         ("fine", ctypes.c_float * len(FINE_LADDER)),
     ]
-
-
-def _int32(x):
-    """A Python int taken modulo 2**32 as a signed int32 value."""
-    x = int(x) & 0xFFFFFFFF
-    return x - (1 << 32) if x >= (1 << 31) else x
 
 
 def _ladder(spec, J):
@@ -123,6 +101,9 @@ def fused_epoch(spec, pos_s, dirs, ids_s, start_s, packed_s, packed2_s,
     many of the J steps are inside the simulated window (trailing steps
     leave the spins where they are), ``seed32`` the kernel RNG key,
     ``epsilon`` the surface offset and ``max_iter`` the bounce budget.
+    ``t_base``, ``n_valid_steps`` and ``seed32`` are Python ints or 0-d
+    int32 tensors on the spins' device: the CUDA kernel reads them from
+    device memory, so a captured graph can replay it with new values.
 
     Returns (per-step positions (J, 3, n) float32, iter_exc (n,) bool,
     per-step membrane-transit counts (J, n) int32); with ``count=True`` a
@@ -191,15 +172,16 @@ def _fused_epoch_cuda(spec, pos_s, dirs, ids_s, start_s, packed_s,
                               device=device))
     dil = _ladder(spec, J)
     params = EpochParams(
-        n=n, J=J, n_valid=int(n_valid_steps), seed=_int32(seed32),
-        t_base=int(t_base), max_iter=int(max_iter), eps=float(epsilon),
+        n=n, J=J, max_iter=int(max_iter), eps=float(epsilon),
         dil=(ctypes.c_float * MAX_J)(*(dil + [0.0] * (MAX_J - J))),
         fine=(ctypes.c_float * len(FINE_LADDER))(*FINE_LADDER),
     )
     fn = load("fused_epoch").lib.fused_epoch_launch
-    fn.argtypes = [ctypes.c_void_p] * 16 + [EpochParams, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 19 + [EpochParams, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):
+        scalars, keep = draw_kernel.scalar_ptrs(
+            device, seed32, t_base, n_valid_steps)
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(
             pos_s.data_ptr(), dirs.data_ptr(), ids_s.data_ptr(),
@@ -208,11 +190,12 @@ def _fused_epoch_cuda(spec, pos_s, dirs, ids_s, start_s, packed_s,
             spec.sv_width.data_ptr(), spec.perm_prob.data_ptr(),
             out_pos.data_ptr(), out_cross.data_ptr(), out_exc.data_ptr(),
             *([c.data_ptr() for c in counts] if count else [None] * 3),
-            params, stream,
+            *scalars, params, stream,
         )
+    del keep
     if rc != 0:
         raise RuntimeError(f"fused_epoch kernel launch failed: CUDA error {rc}")
-    _count_launch()
+    launch_count.add("fused_epoch")
     if count:
         return out_pos, out_exc, out_cross, counts
     return out_pos, out_exc, out_cross
@@ -239,7 +222,7 @@ def threefry2x32_cuda(k0, k1, x0, x1, rounds=13):
     fn.restype = ctypes.c_int
     with torch.cuda.device(x0.device):
         rc = fn(
-            x0.data_ptr(), x1.data_ptr(), _int32(k0), _int32(k1),
+            x0.data_ptr(), x1.data_ptr(), krng.int32(k0), krng.int32(k1),
             int(rounds), x0.numel(), o0.data_ptr(), o1.data_ptr(),
             torch.cuda.current_stream(x0.device).cuda_stream,
         )
@@ -330,7 +313,8 @@ def fused_epoch_reference(spec, pos_s, dirs, ids_s, start_s, packed_s,
     eps = torch.tensor(epsilon, dtype=f32, device=device)
     perm = spec.perm_prob.to(device)
     w = spec.sv_width.to(device)
-    seed = _int32(seed32)
+    seed = krng.int32(seed32)
+    t_base, n_valid_steps = int(t_base), int(n_valid_steps)
     out_pos = torch.empty((J, 3, n), dtype=f32, device=device)
     out_cross = torch.zeros((J, n), dtype=torch.int32, device=device)
     out_exc = torch.zeros((n,), dtype=torch.bool, device=device)

@@ -4,8 +4,11 @@ The fused mesh kernel draws per-spin randomness keyed by the spin's carried
 global id, so the stream is independent of the ensemble's sort order and of
 how spins are split. This module implements the Threefry2x32 block cipher
 (Salmon et al., "Parallel random numbers: as easy as 1, 2, 3", SC'11) with
-13 rounds; ``csrc/fused_epoch.cu`` holds the same cipher as device code,
-and both give the same words bit for bit.
+13 rounds; ``csrc/threefry.cuh`` holds the same cipher as device code for
+the epoch kernel (``csrc/fused_epoch.cu``) and the draw kernel
+(``csrc/krng_draw.cu``, ``engine/draw_kernel.py``), and all give the same
+words bit for bit. The draw functions below are that kernel's plain
+versions.
 
 torch has no logical right shift on int32 (``>>`` is arithmetic) and does
 not promise wrapping int32 overflow, so every word is carried as an int64
@@ -13,7 +16,8 @@ holding the unsigned 32-bit value (masked with ``0xFFFFFFFF`` after each
 add and shift) and is viewed back as int32 at the end.
 
 Every function works elementwise on tensors of any shape; scalar arguments
-may be Python ints (any sign: they are taken modulo 2**32).
+may be Python ints (any sign: they are taken modulo 2**32) or 0-d int32
+tensors on the tensors' device.
 """
 
 import math
@@ -30,6 +34,12 @@ def _u32(x):
     if isinstance(x, torch.Tensor):
         return x.to(torch.int64) & _MASK
     return int(x) & _MASK
+
+
+def int32(x):
+    """A Python int taken modulo 2**32 as a signed int32 value."""
+    x = int(x) & _MASK
+    return x - (1 << 32) if x >= (1 << 31) else x
 
 
 def _to_int32(x):
@@ -90,6 +100,14 @@ def unit_directions(seed, t, ids, dtype=torch.float32):
     rho = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
     phi = (2.0 * math.pi) * u1
     return torch.stack((rho * torch.cos(phi), rho * torch.sin(phi), z))
+
+
+def unit_directions_epoch(seed, t_base, J, ids, dtype=torch.float32):
+    """(J, 3, n) unit directions of steps ``t_base .. t_base + J - 1``:
+    :func:`unit_directions` stacked over the epoch's steps."""
+    return torch.stack([
+        unit_directions(seed, t_base + s, ids, dtype) for s in range(J)
+    ])
 
 
 def bounce_uniform(seed, t, ids, bounce, dtype=torch.float32):

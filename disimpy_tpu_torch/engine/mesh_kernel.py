@@ -19,11 +19,10 @@ kernel after a transpose that the GPU does not need.
 
 import ctypes
 import math
-import threading
 
 import torch
 
-from . import mesh_accel
+from . import launch_count, mesh_accel
 
 # Barycentric leak-proofing tolerance per engine dtype (the JAX package's
 # stepping._make_mesh_query).
@@ -34,18 +33,6 @@ EDGE_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # u + v 1).
 FLOPS_PER_RECORD = 52
 
-# Kernel launches since import (or since a caller reset it): counts only
-# where the CUDA kernel is launched, so a run can show that its main path
-# went through the kernel.
-launches = 0
-# Guards the counts: the parts of a split run launch from several threads.
-_count_lock = threading.Lock()
-
-
-def _count_launch():
-    global launches
-    with _count_lock:
-        launches += 1
 
 _SYMBOLS = {torch.float32: "mesh_hit_launch_f32",
             torch.float64: "mesh_hit_launch_f64"}
@@ -158,7 +145,7 @@ def _nearest_hit_cuda(spec, r0, direction, rem):
         )
     if rc != 0:
         raise RuntimeError(f"mesh_hit kernel launch failed: CUDA error {rc}")
-    _count_launch()
+    launch_count.add("mesh_hit")
     return min_d, normal
 
 

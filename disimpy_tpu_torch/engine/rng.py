@@ -14,21 +14,28 @@ another engine's draws:
 - ``uniform(bounce, idx)``: permeability uniforms for the spins at
   positions ``idx`` of the ensemble (an int64 tensor, or None for all of
   them), at collision ``bounce`` (an int, or a tensor matching ``idx``).
+
+Both come from ``engine/draw_kernel.py``: one launch of the draw kernel
+(``csrc/krng_draw.cu``) per step and per bounce pass on a CUDA device, the
+plain krng functions on the CPU.
 """
 
-from . import krng
+from . import draw_kernel
 
 
 def step_directions(seed_k, t, ids, dtype):
     """(3, n) isotropic unit directions for time step ``t``."""
-    return krng.unit_directions(seed_k, int(t), ids, dtype)
+    return draw_kernel.unit_directions_epoch(seed_k, int(t), 1, ids, dtype)[0]
 
 
 def bounce_uniforms(seed_k, t, ids, dtype):
     """The ``uniform(bounce, idx)`` callable for time step ``t``."""
+    key = (seed_k, int(t))
+    if ids.device.type == "cuda":
+        # One copy of the step's scalars serves every bounce pass.
+        key = tuple(draw_kernel.device_scalars(key, ids.device))
 
     def uniform(bounce, idx=None):
-        sel = ids if idx is None else ids[idx]
-        return krng.bounce_uniform(seed_k, int(t), sel, bounce, dtype)
+        return draw_kernel.bounce_uniform(*key, ids, bounce, idx, dtype)
 
     return uniform

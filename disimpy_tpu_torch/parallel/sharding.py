@@ -7,7 +7,10 @@ exactly as a single run does. Each part gets its own copy of the substrate
 spec; the parts run concurrently, one host thread per part (the classic
 engine syncs the host once per bounce pass, so parts run one after another
 would serialize), and simulation() reduces the signals on the host. No part
-is padded: parts may differ in size.
+is padded: parts may differ in size. A fused part on a CUDA device replays
+a CUDA graph of its own, with its own memory pool and static buffers (the
+graph cache in ``engine/fused.py`` keys each part by its first spin, and
+captures one at a time, thread-locally).
 """
 
 import dataclasses

@@ -48,7 +48,7 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 from disimpy_tpu_torch import gradients, simulations, substrates  # noqa: E402
-from disimpy_tpu_torch.engine import fused_kernel, mesh_kernel  # noqa: E402
+from disimpy_tpu_torch.engine import launch_count  # noqa: E402
 
 ORACLES = ROOT / "tests" / "oracles"
 D = 2e-9
@@ -132,7 +132,7 @@ def _watch():
                                     classic_note),
         "_fill_mesh": timed("_fill_mesh", "seed_s", lambda _: None),
     }
-    k1, k2 = fused_kernel.launches, mesh_kernel.launches
+    before = dict(launch_count.counts)
     for k in names:
         setattr(simulations, k, wrapped[k])
     try:
@@ -140,8 +140,8 @@ def _watch():
     finally:
         for k in names:
             setattr(simulations, k, orig[k])
-        info["launches"] = {"fused_epoch": fused_kernel.launches - k1,
-                            "mesh_hit": mesh_kernel.launches - k2}
+        info["launches"] = {k: launch_count.counts[k] - before[k]
+                            for k in ("fused_epoch", "mesh_hit")}
         fused = info.pop("fused_table", None)
         classic = "classic_layout" in info
         if fused is None:

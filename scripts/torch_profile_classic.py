@@ -28,7 +28,7 @@ sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402
 from disimpy_tpu_torch import gradients, meshes, simulations, substrates  # noqa: E402
 from disimpy_tpu_torch.engine import (  # noqa: E402
-    config, fused_kernel, mesh_kernel)
+    config, launch_count)
 
 
 # The kernels of one nearest-hit query (csrc/mesh_hit.cu).
@@ -65,24 +65,25 @@ def main():
     try:
         walls = [run(seed) for seed in (1, 2, 3)]
         print(f"unprofiled walls {walls} s ({smi})", flush=True)
-        mesh_kernel.launches = 0
+        launch_count.reset()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             wall = run(2)
     finally:
         config.use_fused = None
-    print(f"profiled wall {wall} s, {mesh_kernel.launches} mesh_hit launches")
+    print(f"profiled wall {wall} s, {launch_count.counts['mesh_hit']} "
+          "mesh_hit launches")
     report(prof.key_averages(), "mesh_hit", MESH_HIT_KERNELS)
 
     # The same workload through the fused engine (the default path).
     walls = [run(seed) for seed in (1, 2)]
     print(f"fused engine: unprofiled walls {walls} s ({smi})", flush=True)
-    fused_kernel.launches = 0
+    launch_count.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = run(2)
-    print(f"fused engine: profiled wall {wall} s, {fused_kernel.launches} "
-          "fused_epoch launches")
+    print(f"fused engine: profiled wall {wall} s, "
+          f"{launch_count.counts['fused_epoch']} fused_epoch launches")
     report(prof.key_averages(), "fused_epoch", ("fused_epoch_kernel",))
 
 
