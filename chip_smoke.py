@@ -9,9 +9,9 @@ Phases, one line each (any failure raises, so the exit code is non-zero):
 
 1. the card (name and power limit from nvidia-smi), torch and CUDA
    versions, and the builds of ``disimpy_tpu_torch/csrc/fused_epoch.cu``,
-   ``csrc/mesh_hit.cu`` and ``csrc/krng_draw.cu`` (one nvcc each, started
-   together), with the epoch kernel's default variant held to 64 registers
-   and no spills;
+   ``csrc/mesh_hit.cu``, ``csrc/krng_draw.cu`` and
+   ``csrc/analytic_step.cu`` (one nvcc each, started together), with
+   the epoch kernel's default variant held to 64 registers and no spills;
 2. the kernel's device threefry against ``engine/krng.py``, bit for bit;
 3. the epoch kernel against its plain torch version on the bench bundle's
    pack (J = 4, perm 0 and 0.5; 16,384 sorted spins with equal iter_exc
@@ -77,9 +77,9 @@ Phases, one line each (any failure raises, so the exit code is non-zero):
 12. the tracked fused window, kernel against plain version, from 16,384
    intra starts of that cell (20 steps): crossings and intra steps equal
    for every spin whose positions agree, at most 0.5% divergent;
-13. the bench workload with ``exchange_stats=True``: the host
-   classification time of the uniform starts (the run drops to 131,072
-   spins when a sample predicts over 60 s), the tracked run's time beside
+13. the bench workload with ``exchange_stats=True`` at 524,288 spins: the
+   time the card takes to classify the uniform starts, the tracked run's
+   time beside
    an untracked run and phase 6's; no transits, intra steps 0 or 150 in
    agreement with each start's distance to the nearest axis for all but
    at most 1e-5 of the starts (the float32 ray-parity classifier counts a
@@ -141,12 +141,36 @@ Phases, one line each (any failure raises, so the exit code is non-zero):
    torch.profiler run each the device's busy share and the kernels it
    saw, which must equal the launches the wrappers counted.
 
+19. the classic engine on the card: the step kernels against their plain
+   versions on one step at 524,288 spins, the same positions and draws:
+   K8 (``csrc/analytic_step.cu``) on the sphere, cylinder and ellipsoid x
+   float32 / float64 x perm 0 / 0.5 x one radius / a radius per spin, and
+   the mesh step (the draw kernel, K2's passes with the first bounce
+   resolved, K9 in ``csrc/mesh_hit.cu``) on the bundle's halo pack in both
+   types and perms: K8 against its plain version, and the mesh step
+   against the plain loop on K2's query, positions, exc and crossings bit
+   for bit on every spin; the mesh step (and its first pass alone) against
+   the plain loop on the gather query, at most 0.5% of the spins more than
+   1e-5 (float32) or 1e-12 (float64) step lengths apart, counted; each
+   step's time, its collision checks, K2's and K9's shares and bounds; then
+   classic windows graphed (``config.classic_cuda_graph``) against eager,
+   bit for bit: the bundle tracked and with trajectories, a sphere sweep;
+   the classic bundle (float32 and float64, 524,288 x 150 x 32) and the
+   four analytic MISST runs (1e5 x 1000 x 100 b) through ``simulation()``
+   graphed and eager: equal results, the first call, the median of five
+   runs and the launches per run, one torch.profiler run of the float32
+   bundle each way (busy share; the kernels seen equal the launches
+   counted); and the start classifier on the card against the CPU's on
+   524,288 points uniform in the bundle's voxel and in the neuron's (at
+   most 1e-5 of them may differ).
+
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the rest
 of the repository beside it, the script fails before printing either.
 """
 
 import collections
+import dataclasses
 import json
 import math
 import os
@@ -213,7 +237,7 @@ def card():
 
     from disimpy_tpu_torch.engine import _build
 
-    names = ("fused_epoch", "mesh_hit", "krng_draw")
+    names = ("fused_epoch", "mesh_hit", "krng_draw", "analytic_step")
     with ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(_build.load, names))
     for name, built in zip(names, builds):
@@ -1344,7 +1368,7 @@ def tracked_window():
     n, n_t, dt = 16384, 20, 2e-4
     sub = _exchange_cylinder()
     scale = 1.0 / math.sqrt(6 * DIFFUSIVITY * dt)
-    start = simulations._fill_mesh(n, sub, True, 11)
+    start = simulations._fill_mesh(n, sub, True, 11, "cuda")
     spec = simulations._fused_spec(sub, n, scale, torch.device("cuda"))
     eps = simulations._effective_epsilon(
         1e-13, scale, float(np.max(sub.voxel_size)) * scale, n_t,
@@ -1391,29 +1415,17 @@ def tracked_window():
 
 
 def tracked_bench(bench, smi, fused_runs):
-    """Phase 13: the bench workload with exchange_stats=True: the host
-    classification of the uniform starts, the tracked run beside an
-    untracked one with the same seed (equal positions and signals bit for
-    bit) and phase 6's timed run."""
+    """Phase 13: the bench workload with exchange_stats=True: the
+    classification of the uniform starts on the card, the tracked run
+    beside an untracked one with the same seed (equal positions and signals
+    bit for bit) and phase 6's timed run."""
     from disimpy_tpu_torch import simulations
     from disimpy_tpu_torch.engine import launch_count
 
     sub, step_l = bench["substrate"], bench["step_l"]
     scale = 1.0 / step_l
-    n_t, seed = 150, 2
+    n, n_t, seed = 524288, 150, 2
     vox = np.asarray(sub.voxel_size) * scale
-    # The classification rate on a sample decides the run's size.
-    sample = simulations._uniform_positions(32768, vox, seed, "cuda")
-    t0 = time.perf_counter()
-    classify = simulations._make_intra_classifier(sub)
-    t_build = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    classify(sample.cpu().numpy().T.astype(float) * step_l)
-    estimate = t_build + (time.perf_counter() - t0) * 524288 / 32768
-    n = 524288 if estimate <= 60 else 131072
-    say(f"tracked bench: the classifier's build ({t_build:.1f} s) and 32,768 "
-        f"starts predict {estimate:.1f} s of host classification for "
-        f"524,288 -> running {n} spins")
 
     timing = {}
     start_parity = simulations._start_parity
@@ -1427,8 +1439,6 @@ def tracked_bench(bench, smi, fused_runs):
     runs = {}
     simulations._start_parity = timed_parity
     try:
-        # Untracked first: at 131,072 spins it packs (and caches) the
-        # bundle for that spin count, so the tracked wall holds no pack.
         for label, track in (("untracked", False), ("tracked", True)):
             launch_count.reset()
             torch.cuda.synchronize()
@@ -1455,8 +1465,9 @@ def tracked_bench(bench, smi, fused_runs):
                 .sum())
     same = np.array_equal(pos_t, pos_u) and np.array_equal(sig_t, sig_u)
     say(f"tracked bench: {n} spins x {n_t} steps x 32 meas, "
-        f"exchange_stats=True in {wall:.3f} s, of which host classification "
-        f"{timing['classify']:.3f} s; untracked {wall_u:.3f} s; phase 6 "
+        f"exchange_stats=True in {wall:.3f} s, of which the classification "
+        f"of the starts on the card {timing['classify']:.3f} s; untracked "
+        f"{wall_u:.3f} s; phase 6 "
         f"timed run {fused_runs['timed']['wall']:.3f} s ({smi}); "
         f"{launched} / {launched_u} kernel launches; crossings total "
         f"{int(stats['crossings'].sum())}; intra fraction {fraction:.6f}; "
@@ -2090,7 +2101,14 @@ def _window(spec, pos0, g_eff, eps, parity, seed, track):
 
 
 def _flat(out):
-    return [t for o in out for t in (o if isinstance(o, tuple) else (o,))]
+    """The tensors of a window's nested outputs, in order (None skipped)."""
+    flat = []
+    for o in out:
+        if isinstance(o, tuple):
+            flat.extend(_flat(o))
+        elif o is not None:
+            flat.append(o)
+    return flat
 
 
 def _busy_share(run):
@@ -2263,6 +2281,464 @@ def draws_and_graph(bench, neuron, smi):
     return dict(draws=draws, runs=runs)
 
 
+# K8's floating-point operations per collision check (the quadric's root
+# ~20, the normal ~20, a hit's reflection ~40) and per direction draw (cos
+# and sin ~20 each, ~10 more); each threefry block it draws (one for the
+# direction, one per hit) is K7_INT_OPS integer instructions.
+K8_FLOPS_PER_CHECK = 80
+K8_DRAW_FLOPS = 50
+# The mesh step against the plain loop on the gather query: the two
+# queries round the Moller-Trumbore test differently (K2 contracts it into
+# FMAs), so walks may end this many step lengths apart (7.63e-6 float32 and
+# 1.42e-14 float64 seen on an H100), and at most MAX_STEP_APART of the
+# spins further apart or with other exc or crossings (a grazing bounce that
+# rounds the other way).
+GATHER_APART = {torch.float32: 1e-5, torch.float64: 1e-12}
+MAX_STEP_APART = 0.005
+# Most start classifications in which the card and the CPU may differ:
+# the float32 ray parity of a grazed facet edge (ROADMAP fault 4).
+MAX_CLASSIFY_DIFFER = 1e-5
+
+
+def _kernel_device_ms(fn, names, reps=5):
+    """Device ms per ``fn()`` call summed over the kernels whose names
+    contain each of ``names``: torch.profiler over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    return {k: sum(e.self_device_time_total for e in device if k in e.name)
+            / 1e3 / reps for k in names}
+
+
+def _checks_by_k(step_at):
+    """[#spins with iters >= k for k = 1, 2, ...] of one step, read from
+    the kernel's exc flags at max_iter = k (the walk up to check k does
+    not depend on max_iter). Their sum is the step's collision checks."""
+    counts = []
+    for k in range(1, 65):
+        c = int(step_at(k)[1].sum())
+        if c == 0:
+            break
+        counts.append(c)
+    return counts
+
+
+def _step_check(kind, label, spec, pos, eps):
+    """One classic step at the main path's shape, the step kernels against
+    the plain version on the same positions and draws. K8: positions, exc
+    and crossings per spin bit for bit. The mesh step: bit for bit with the
+    plain loop on K2's query, and against the plain loop on the gather
+    query at most MAX_STEP_APART of the spins more than GATHER_APART[dtype]
+    step lengths apart (or with other exc or crossings); the same for the
+    first pass alone (max_iter 1: K2's resolve epilogue and the tail).
+    Returns the record (times, bounds, counts)."""
+    from disimpy_tpu_torch.engine import (analytic_kernel, config,
+                                          draw_kernel, mesh_kernel, stepping)
+
+    n = pos.shape[1]
+    dtype = pos.dtype
+    size = pos.element_size()
+    ids = torch.arange(n, dtype=torch.int32, device="cuda")
+    seed, t = 4321, 17
+    scal = draw_kernel.device_scalars((seed, t), "cuda")
+    if kind == "mesh":
+        def kernel(max_iter=1000):
+            return mesh_kernel.mesh_step(spec, pos, eps, max_iter, scal[0],
+                                         scal[1], ids)
+    else:
+        def kernel(max_iter=1000):
+            return analytic_kernel.analytic_step(
+                kind, pos, spec, eps, max_iter, scal[0], scal[1], ids)
+
+    def plain(max_iter=1000, query=None):
+        """The plain version; a mesh on K2's query (the one
+        config.mesh_query_backend picks on the card), or on ``query``."""
+        backend = config.mesh_query_backend
+        try:
+            if query is not None:
+                config.mesh_query_backend = lambda *a: query
+            return stepping.plain_step(kind, pos, spec, eps, max_iter, seed,
+                                       t, ids)
+        finally:
+            config.mesh_query_backend = backend
+
+    def compare(a, b, limit=0.0):
+        same = (a[0] == b[0]).all(dim=0) & (a[1] == b[1]) & (a[2] == b[2])
+        apart = (((a[0] - b[0]).abs().amax(dim=0) > limit) | (a[1] != b[1])
+                 | (a[2] != b[2]))
+        err = float((a[0] - b[0]).abs().max())
+        return int((~same).sum()), int(apart.sum()), err
+
+    out = kernel()
+    if kind == "mesh":
+        limit = GATHER_APART[dtype]
+        differ, apart, err = compare(out, plain(query="gather"), limit)
+        differ_k2, _, _ = compare(out, plain())
+        first = kernel(1)
+        first_differ, first_apart, first_err = compare(
+            first, plain(1, "gather"), limit)
+        first_differ_k2, _, _ = compare(first, plain(1))
+        ok = (differ_k2 == 0 and first_differ_k2 == 0
+              and max(apart, first_apart) <= MAX_STEP_APART * n)
+        result = (f"against the plain loop on K2's query {differ_k2} spins "
+                  f"not bit for bit equal (first pass {first_differ_k2}); "
+                  f"on the gather query {differ} not bit for bit equal, "
+                  f"{apart} more than {limit:g} step lengths apart (limit "
+                  f"{MAX_STEP_APART * n:g}), max |diff| {err:.3g} (first "
+                  f"pass: {first_differ}, {first_apart}, {first_err:.3g})")
+        plain_ms, _ = _cuda_ms(lambda: plain(query="gather"), 3)
+        first_plain_ms, _ = _cuda_ms(lambda: plain(1, "gather"), 3)
+    else:
+        differ, apart, err = compare(out, plain())
+        ok = differ == 0
+        result = (f"{differ} spins not bit for bit equal, max |diff| "
+                  f"{err:.3g}")
+        plain_ms, _ = _cuda_ms(plain, 3)
+    by_k = _checks_by_k(kernel)
+    checks = sum(by_k)
+    hits = max(checks - n, 0)
+    ms = _graph_ms(kernel, 20)
+    record = dict(kind=kind, label=label, n=n, differ=differ, apart=apart,
+                  max_abs_err=err, ms=ms, plain_ms=plain_ms, checks=checks,
+                  crossings=int(out[2].sum()))
+    if kind == "mesh":
+        r0 = pos.T.contiguous()
+        cell, _ = mesh_kernel.halo_cells(spec, r0, r0, torch.zeros(
+            n, dtype=dtype, device="cuda"))
+        per_row = float(spec.cell_counts[cell].double().mean())
+        listed = by_k[1] if len(by_k) > 1 else 0
+        times = _kernel_device_ms(lambda: kernel(), (
+            "bounce_pass", "finish_pass", "hit_pass", "cell_pass",
+            "scan_pass", "scatter_pass", "directions_kernel"))
+        # K2 on the main path (the first pass, its resolve epilogue
+        # included): each spin's r0, direction, rem and id read once, its
+        # resolved state, iters and crossings written once, the listed
+        # spins' worklist entries; each touched row's records read once and
+        # one test per record of each spin's row.
+        touched = torch.unique(cell)
+        k2_bytes = (int(spec.cell_counts[touched].sum()) * 12 * size
+                    + spec.cell_counts.numel() * 4 + n * (14 * size + 12)
+                    + listed * 4)
+        k2_flops = int(spec.cell_counts[cell].sum()) * (
+            mesh_kernel.FLOPS_PER_RECORD)
+        k2_bound_ms, k2_bound_by = bound(k2_bytes, k2_flops, str(dtype)[6:])
+        # K9 (bounce_pass and the tail): the listed spins' state read and
+        # written, the tail's reads and writes; the later passes' record
+        # tests, at the first pass's mean row length.
+        n_bytes = listed * (2 * 8 * size + 4) + n * (8 * size + 9)
+        flops = hits * per_row * mesh_kernel.FLOPS_PER_RECORD
+        record.update(
+            k9_ms=times["bounce_pass"] + times["finish_pass"],
+            k2_ms=sum(times[k] for k in ("hit_pass", "cell_pass",
+                                         "scan_pass", "scatter_pass")),
+            k7_ms=times["directions_kernel"], listed=listed,
+            records_per_row=per_row, first_err=first_err,
+            first_plain_ms=first_plain_ms, k2_bound_ms=k2_bound_ms,
+            k2_bound_by=k2_bound_by)
+    else:
+        per_spin = getattr(spec, "radius", torch.zeros(())).numel() == n
+        n_bytes = n * (6 * size + 9 + (size if per_spin else 0))
+        flops = checks * K8_FLOPS_PER_CHECK + n * K8_DRAW_FLOPS
+    bound_ms, bound_by = bound(n_bytes, flops, str(dtype)[6:])
+    if kind != "mesh":
+        int_ms, _ = bound(0, (n + hits) * K7_INT_OPS, "int32")
+        if int_ms > bound_ms:
+            bound_ms, bound_by = int_ms, "operations"
+    record.update(bound_ms=bound_ms, bound_by=bound_by)
+    say(f"step kernels vs plain, {label}: {n} spins, {checks / n:.3f} "
+        f"collision checks per spin, {record['crossings']} crossings; "
+        f"{result}; step {ms:.4f} ms (plain {plain_ms:.3f} ms)"
+        + (f" = K7 {record['k7_ms']:.4f} + K2 {record['k2_ms']:.4f} + K9 "
+           f"{record['k9_ms']:.4f} ms ({record['listed']} spins listed for "
+           f"K9, {record['records_per_row']:.1f} records per row); K2 bound "
+           f"{k2_bound_ms:.4f} ms ({k2_bound_by}), plain first pass "
+           f"{first_plain_ms:.3f} ms; K9"
+           if kind == "mesh" else "")
+        + f" bound {bound_ms:.4f} ms ({bound_by})")
+    if not ok:
+        raise AssertionError(f"step kernels ({label}) disagree with the "
+                             "plain version")
+    return record
+
+
+def _analytic_cases(n):
+    """(kind, label, spec, positions, epsilon) for K8's checks: each
+    substrate x float32 / float64 x perm 0 / 0.5 x one radius / a radius
+    per spin, the spins uniform inside a compartment 3 step lengths
+    across."""
+    from disimpy_tpu_torch.engine import specs
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        ball = torch.randn((3, n), generator=g, device="cuda", dtype=dtype)
+        ball = ball / ball.norm(dim=0) * torch.rand(
+            n, generator=g, device="cuda", dtype=dtype) ** (1 / 3)
+        eps = 64 * float(torch.finfo(dtype).eps) * 3.0
+        for kind in ("sphere", "cylinder", "ellipsoid"):
+            for perm in (0.0, 0.5):
+                p = torch.tensor(perm, dtype=dtype, device="cuda")
+                for per_spin in ((False, True) if kind != "ellipsoid"
+                                 else (False,)):
+                    r = torch.full((n,) if per_spin else (), 3.0,
+                                   dtype=dtype, device="cuda")
+                    if per_spin:
+                        r = r * (0.8 + 0.4 * torch.rand(
+                            n, generator=g, device="cuda", dtype=dtype))
+                    if kind == "sphere":
+                        spec, pos = specs.SphereSpec(r, p), ball * r
+                    elif kind == "cylinder":
+                        spec = specs.CylinderSpec(r, p)
+                        pos = ball * torch.stack([
+                            torch.full_like(ball[0], 5.0), r.expand(n),
+                            r.expand(n)])
+                    else:
+                        ax = torch.tensor([3.0, 2.5, 2.0], dtype=dtype,
+                                          device="cuda")
+                        spec = specs.EllipsoidSpec(ax, p)
+                        pos = ball * ax[:, None]
+                    cases.append((kind, f"{kind} {name} perm {perm} "
+                                  f"{'per-spin' if per_spin else 'one'} "
+                                  "radius", spec, pos.contiguous(), eps))
+    return cases
+
+
+def _classify_check(label, sub, n, step_l=None):
+    """Start classification on the card against the CPU path on n points
+    uniform in the substrate's voxel: at most MAX_CLASSIFY_DIFFER of them
+    may differ. Returns (card s, cpu s, differing)."""
+    from disimpy_tpu_torch import simulations
+
+    points = np.random.RandomState(17).random_sample((n, 3)) * np.asarray(
+        sub.voxel_size)
+    walls = {}
+    inside = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        inside[device] = simulations._make_intra_classifier(sub, device)(
+            points)
+        walls[device] = time.perf_counter() - t0
+    differ = int((inside["cuda"] != inside["cpu"]).sum())
+    say(f"start classifier, {label}: {n} points uniform in the voxel, "
+        f"{int(inside['cuda'].sum())} inside; card {walls['cuda']:.3f} s, "
+        f"CPU {walls['cpu']:.3f} s; {differ} classified differently (limit "
+        f"{MAX_CLASSIFY_DIFFER * n:g})")
+    if differ > MAX_CLASSIFY_DIFFER * n:
+        raise AssertionError(f"start classifier ({label}): the card and the "
+                             "CPU disagree")
+    return walls["cuda"], walls["cpu"], differ
+
+
+CLASSIC_KERNELS = {"analytic_step": "analytic_step_kernel",
+                   "mesh_hit": "hit_pass", "mesh_bounce": "bounce_pass",
+                   "krng_draw": "directions_kernel"}
+
+
+def _classic_graph_vs_eager(label, sim, profiled=False):
+    """A classic run through ``simulation()`` graphed
+    (``config.classic_cuda_graph``) against eager: the first call of the
+    shape, the median of GRAPH_READINGS timed runs with the launches per
+    run, the results bit for bit, and (``profiled``) one torch.profiler run
+    each: busy share and the kernels it saw against the launches
+    counted."""
+    from disimpy_tpu_torch.engine import config, core, launch_count
+
+    out = {}
+    try:
+        for graphed in (True, False):
+            config.classic_cuda_graph = graphed
+            torch.cuda.synchronize()
+            core._GRAPHS.clear()
+            t0 = time.perf_counter()
+            sim(1)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            walls = []
+            for _ in range(GRAPH_READINGS):
+                launch_count.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = sim(2)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            run = dict(first=first, walls=walls, median=float(np.median(
+                walls)), res=res, counts=dict(launch_count.counts))
+            if profiled:
+                launch_count.reset()
+                busy, wall_ms, events, top, names = _busy_share(
+                    lambda: sim(2))
+                run.update(busy=busy / wall_ms, events=events, top=top,
+                           seen={k: sum(c for nm, c in names.items()
+                                        if v in nm)
+                                 for k, v in CLASSIC_KERNELS.items()},
+                           counted=dict(launch_count.counts))
+            out[graphed] = run
+    finally:
+        config.classic_cuda_graph = True
+    g, e = out[True], out[False]
+    res = [r if isinstance(r, tuple) else (r,) for r in (g["res"], e["res"])]
+    same = all(np.array_equal(a, b) for a, b in zip(*res))
+    launches = {k: v for k, v in g["counts"].items() if v}
+    say(f"classic graph vs eager, {label}: results "
+        f"{'equal' if same else 'DIFFERENT'} bit for bit; first call "
+        f"{g['first']:.4f} s graphed (eager step, capture, replays), "
+        f"{e['first']:.4f} s eager; median of {GRAPH_READINGS} runs "
+        f"{g['median']:.4f} s graphed ({min(g['walls']):.4f}-"
+        f"{max(g['walls']):.4f}), {e['median']:.4f} s eager "
+        f"({min(e['walls']):.4f}-{max(e['walls']):.4f}); launches per run "
+        f"{launches}" + ("".join(
+            f"; profiled {'graphed' if k else 'eager'}: busy {r['busy']:.3f}"
+            f" of the wall, {r['events']} device events, kernels seen "
+            f"{r['seen']} against counted "
+            f"{ {n: r['counted'][n] for n in r['seen']} }; most device time "
+            + ", ".join(f"{nm} {ms:.1f} ms x {c}" for nm, ms, c in r["top"])
+            for k, r in ((True, g), (False, e))) if profiled else ""))
+    if not same:
+        raise AssertionError(f"classic graph vs eager ({label}): runs differ")
+    if g["counts"] != e["counts"]:
+        raise AssertionError(f"classic graph vs eager ({label}): launch "
+                             "counts differ")
+    if profiled:
+        for r in (g, e):
+            if r["seen"] != {k: r["counted"][k] for k in r["seen"]}:
+                raise AssertionError(
+                    f"classic graph vs eager ({label}): counted "
+                    f"{r['counted']}, the profiler saw {r['seen']}")
+    return dict(graph=g["median"], eager=e["median"], walls=(g["walls"],
+                e["walls"]), first=(g["first"], e["first"]),
+                launches=launches, busy=(g.get("busy"), e.get("busy")))
+
+
+def _window_graph_vs_eager(label, run):
+    """One classic window graphed against eager, every output bit for
+    bit."""
+    from disimpy_tpu_torch.engine import config
+
+    outs = {}
+    try:
+        for graphed in (True, False):
+            config.classic_cuda_graph = graphed
+            outs[graphed] = _flat(run())
+    finally:
+        config.classic_cuda_graph = True
+    same = all(torch.equal(a, b) for a, b in zip(outs[True], outs[False]))
+    say(f"classic window graph vs eager, {label}: "
+        f"{'equal' if same else 'DIFFERENT'} bit for bit "
+        f"({len(outs[True])} outputs)")
+    if not same:
+        raise AssertionError(f"classic window ({label}): graph and eager "
+                             "differ")
+
+
+def classic_on_card(bench, neuron, smi):
+    """Phase 19: the classic engine on the card. The step kernels against
+    their plain versions at 524,288 spins (K8 on every analytic case; K7 +
+    K2 + K9 on the bundle's halo pack); graphed windows and runs against
+    eager ones bit for bit (tracked, sweep, trajectory); medians of five
+    classic bundle runs (float32, float64) and of the four analytic MISST
+    runs with their launches, one profiled bundle run; the start
+    classifier on the card against the CPU's on the bundle and the
+    neuron."""
+    from disimpy_tpu_torch import simulations, substrates, sweeps
+    from disimpy_tpu_torch.engine import config, core, launch_count
+
+    n = 524288
+    records = {"analytic": [], "mesh": []}
+    for case in _analytic_cases(n):
+        records["analytic"].append(_step_check(*case))
+    sub, step_l = bench["substrate"], bench["step_l"]
+    scale = 1.0 / step_l
+    g = torch.Generator(device="cuda").manual_seed(12)
+    for dtype in (torch.float32, torch.float64):
+        spec = simulations._classic_mesh_spec(sub, scale, dtype,
+                                              torch.device("cuda"))
+        pos = (torch.rand((3, n), generator=g, device="cuda", dtype=dtype)
+               * spec.voxel_size[:, None])
+        eps = simulations._effective_epsilon(
+            1e-13, scale, float(np.max(sub.voxel_size)) * scale, 150, dtype,
+            False)
+        for perm in (0.0, 0.5):
+            spec_p = dataclasses.replace(spec, perm_prob=torch.tensor(
+                perm, dtype=dtype, device="cuda"))
+            records["mesh"].append(_step_check(
+                "mesh", f"bundle {str(dtype)[6:]} perm {perm}", spec_p, pos,
+                eps))
+
+    # Windows graphed against eager: tracked (the bundle, perm 0.5), a
+    # two-block sweep, and a trajectory window.
+    spec = simulations._classic_mesh_spec(sub, scale, torch.float32,
+                                          torch.device("cuda"))
+    spec = dataclasses.replace(spec, perm_prob=torch.tensor(0.5,
+                                                            device="cuda"))
+    pos = torch.rand((3, n), generator=g, device="cuda") * spec.voxel_size[
+        :, None]
+    g_eff = torch.randn((20, 4, 3), generator=g, device="cuda")
+    zeros = torch.zeros(n, dtype=torch.int32, device="cuda")
+    parity = torch.rand(n, generator=g, device="cuda") < 0.5
+    eps = 64 * float(torch.finfo(torch.float32).eps) * 20.0
+
+    def window(**kw):
+        return core.run_window(
+            "mesh", spec, pos, torch.zeros((4, n), device="cuda"),
+            torch.zeros(n, dtype=torch.bool, device="cuda"), g_eff,
+            range(5, 25), 3, eps, 1000, **kw)
+
+    _window_graph_vs_eager("bundle mesh, tracked, 20 steps", lambda: window(
+        track="exchange", compartments=(zeros, parity, zeros)))
+    _window_graph_vs_eager("bundle mesh, trajectory, 20 steps",
+                           lambda: window(collect_positions=True))
+    gradient, dt = _misst_gradient(30, 100)
+    _window_graph_vs_eager("sphere sweep (2, 4, 6, 8 um), 1e4 spins x 100 "
+                           "steps", lambda: (torch.from_numpy(
+                               sweeps.sweep_sphere_radii(
+                                   10000, DIFFUSIVITY, gradient, dt,
+                                   np.array([2, 4, 6, 8]) * 1e-6,
+                                   device="cuda")),))
+
+    # Whole runs: the classic bundle in float32 (profiled) and float64.
+    runs = {}
+    try:
+        config.use_fused = False
+        for dtype in ("float32", "float64"):
+            runs["bundle", dtype] = _classic_graph_vs_eager(
+                f"classic bundle {dtype}, {n} x 150 x 32 ({smi})",
+                lambda seed, dtype=dtype: simulations.simulation(
+                    n, DIFFUSIVITY, bench["gradient"], bench["dt"], sub,
+                    seed=seed, quiet=True, final_pos=True, dtype=dtype,
+                    device="cuda"),
+                profiled=dtype == "float32")
+    finally:
+        config.use_fused = None
+    for delta in (30, 1):
+        gradient, dt = _misst_gradient(delta, 1000)
+        for kind in ("cylinder", "sphere"):
+            substrate = (substrates.cylinder(radius=5e-6,
+                                             orientation=np.array([0, 0, 1.0]))
+                         if kind == "cylinder" else substrates.sphere(5e-6))
+            runs[kind, delta] = _classic_graph_vs_eager(
+                f"{kind} MISST {delta} ms, 1e5 x 1000 x 100 b ({smi})",
+                lambda seed, substrate=substrate: simulations.simulation(
+                    100000, DIFFUSIVITY, gradient, dt, substrate, seed=seed,
+                    quiet=True, final_pos=True, device="cuda"))
+    classify = {
+        "bundle": _classify_check("bench bundle", sub, n),
+        "neuron": _classify_check("neuron", neuron["substrate"], n),
+    }
+    k8 = [r for r in records["analytic"]
+          if r["label"] == "sphere float32 perm 0.0 one radius"][0]
+    k9 = [r for r in records["mesh"]
+          if r["label"] == "bundle float32 perm 0.0"][0]
+    return dict(records=records, runs=runs, classify=classify, k8=k8, k9=k9)
+
+
 def main():
     phases = (
         "card", "threefry", "bench setup", "fused kernel vs plain", "free",
@@ -2270,6 +2746,7 @@ def main():
         "classic mesh", "classic bench", "exchange oracles", "tracked window",
         "tracked bench", "split and sweeps", "parity matrix",
         "neuron workload", "J and width sweep", "draws and graph",
+        "classic on the card",
     )
     walls = {}
 
@@ -2307,6 +2784,7 @@ def main():
         neuron = timed(phases[16], neuron_workload, bench, smi)
         timed(phases[17], knob_sweep, bench, neuron, smi, packer)
         dg = timed(phases[18], draws_and_graph, bench, neuron, smi)
+        cc = timed(phases[19], classic_on_card, bench, neuron, smi)
     finally:
         if packer is not None:
             packer.stop()
@@ -2334,12 +2812,16 @@ def main():
             "source": "disimpy_tpu_torch/csrc/mesh_hit.cu",
             "replaces": "disimpy_tpu/engine/pallas_mesh.py:119",
             "launches": classic["timed"]["launches"],
-            "max_abs_err": mh["max_abs_err"],
-            "ms": mh["ms"],
-            "plain_ms": mh["plain_ms"],
-            "bound_ms": mh["bound_ms"],
-            "bound_by": mh["bound_by"],
+            "max_abs_err": max(r["first_err"] for r in cc["records"]["mesh"]),
+            "ms": cc["k9"]["k2_ms"],
+            "plain_ms": cc["k9"]["first_plain_ms"],
+            "bound_ms": cc["k9"]["k2_bound_ms"],
+            "bound_by": cc["k9"]["k2_bound_by"],
             "library_ms": None,
+            "query_ms": mh["ms"],
+            "query_plain_ms": mh["plain_ms"],
+            "query_bound_ms": mh["bound_ms"],
+            "query_max_abs_err": mh["max_abs_err"],
         },
         {
             "name": "krng_draw",
@@ -2355,6 +2837,40 @@ def main():
             "plain_ms": k7["plain_ms"],
             "bound_ms": k7["bound_ms"],
             "bound_by": k7["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "analytic_step",
+            "route": "cuda",
+            "source": "disimpy_tpu_torch/csrc/analytic_step.cu",
+            "replaces": "disimpy_tpu/engine/stepping.py:143 (XLA ops of "
+                        "_bounce_analytic's lax.while_loop; no "
+                        "pl.pallas_call)",
+            "launches": cc["runs"]["sphere", 30]["launches"]["analytic_step"],
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in cc["records"]["analytic"]),
+            "ms": cc["k8"]["ms"],
+            "plain_ms": cc["k8"]["plain_ms"],
+            "bound_ms": cc["k8"]["bound_ms"],
+            "bound_by": cc["k8"]["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "mesh_bounce",
+            "route": "cuda",
+            "source": "disimpy_tpu_torch/csrc/mesh_hit.cu",
+            "replaces": "disimpy_tpu/engine/stepping.py:305 (the later "
+                        "passes of pallas_mesh.py:119 under "
+                        "lax.while_loop)",
+            "launches": cc["runs"]["bundle", "float32"]["launches"][
+                "mesh_bounce"],
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in cc["records"]["mesh"]),
+            "ms": cc["k9"]["k9_ms"],
+            "step_ms": cc["k9"]["ms"],
+            "plain_ms": cc["k9"]["plain_ms"],
+            "bound_ms": cc["k9"]["bound_ms"],
+            "bound_by": cc["k9"]["bound_by"],
             "library_ms": None,
         },
     ]}))

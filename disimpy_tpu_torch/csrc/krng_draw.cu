@@ -26,12 +26,9 @@
 // row, so every store is coalesced; nothing is read but the ids and the
 // two scalars.
 //
-// Rounding: the directions follow krng.unit_directions operator by
-// operator: every product and difference is rounded on its own
-// (__fmul_rn / __fsub_rn, so nvcc cannot contract 1 - z * z into an FMA),
-// sqrt is correctly rounded, 2 pi is the float32 (or float64) constant
-// torch multiplies by, and cos / sin are the CUDA math library's, which
-// torch's own CUDA cos / sin call. Never build with --use_fast_math.
+// Rounding: the directions and uniforms are threefry.cuh's
+// (krng::unit_direction, krng::bounce_uniform), which follow krng.py
+// operator by operator; K8 and K9 draw with the same functions.
 //
 // C interface (bound with ctypes): every entry point returns
 // cudaGetLastError() after its launch.
@@ -45,27 +42,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float sub_rn(float a, float b) {
-  return __fsub_rn(a, b);
-}
-__device__ __forceinline__ double sub_rn(double a, double b) {
-  return __dsub_rn(a, b);
-}
-__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
-__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
-__device__ __forceinline__ float max0(float a) { return fmaxf(a, 0.0f); }
-__device__ __forceinline__ double max0(double a) { return fmax(a, 0.0); }
-__device__ __forceinline__ float cos_(float a) { return cosf(a); }
-__device__ __forceinline__ double cos_(double a) { return cos(a); }
-__device__ __forceinline__ float sin_(float a) { return sinf(a); }
-__device__ __forceinline__ double sin_(double a) { return sin(a); }
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 directions_kernel(const int* __restrict__ seed_p,  // () RNG key
@@ -78,21 +54,14 @@ directions_kernel(const int* __restrict__ seed_p,  // () RNG key
   const uint32_t seed = (uint32_t)__ldg(seed_p);
   const uint32_t t0 = (uint32_t)__ldg(t_p);
   const uint32_t id = (uint32_t)ids[i];
-  const T two_pi = (T)(2.0 * 3.14159265358979323846);
   for (int s = 0; s < J; ++s) {
-    // krng.step_words(seed, t, id, 0): key (seed, t), counter (id, 0).
-    uint32_t w0, w1;
-    krng::threefry2x32(seed, t0 + (uint32_t)s, id, 0u, 13, &w0, &w1);
-    const T u0 = krng::uniform01<T>(w0);
-    const T u1 = krng::uniform01<T>(w1);
-    // Archimedes: z uniform in [-1, 1], uniform azimuth.
-    const T z = sub_rn((T)1, mul_rn((T)2, u0));
-    const T rho = sqrt_rn(max0(sub_rn((T)1, mul_rn(z, z))));
-    const T phi = mul_rn(two_pi, u1);
+    // krng.unit_directions(seed, t0 + s, id).
+    T dir[3];
+    krng::unit_direction<T>(seed, t0 + (uint32_t)s, id, dir);
     const size_t row = (size_t)(3 * s) * n + i;
-    out[row] = mul_rn(rho, cos_(phi));
-    out[row + n] = mul_rn(rho, sin_(phi));
-    out[row + 2 * (size_t)n] = z;
+    out[row] = dir[0];
+    out[row + n] = dir[1];
+    out[row + 2 * (size_t)n] = dir[2];
   }
 }
 
@@ -109,8 +78,8 @@ uniforms_kernel(const int* __restrict__ seed_p,     // () RNG key
   if (i >= m) return;
   const uint32_t id = (uint32_t)ids[idx ? idx[i] : i];
   const uint32_t b = (uint32_t)(bounce_p ? bounce_p[i] : bounce);
-  out[i] = krng::uniform01<T>(krng::bounce_word(
-      (uint32_t)__ldg(seed_p), (uint32_t)__ldg(t_p), id, b));
+  out[i] = krng::bounce_uniform<T>((uint32_t)__ldg(seed_p),
+                                   (uint32_t)__ldg(t_p), id, b);
 }
 
 int blocks(int n) { return (n + kThreads - 1) / kThreads; }

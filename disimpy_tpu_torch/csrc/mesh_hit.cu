@@ -42,33 +42,106 @@
 //      spin; a sparse bounce pass gets up to 32 lanes per spin.
 //   5. lane 0 of each spin writes its result at the spin's own index.
 //
+// K9, the classic mesh step on the card (mesh_step_launch_*): the JAX
+// package's step_mesh while-loop (disimpy_tpu/engine/stepping.py:262-341),
+// whose later passes call K2 under lax.while_loop, as one stream of
+// kernels with no host sync:
+//   a. the first bounce pass is the query above on the whole batch, with
+//      an epilogue in the hit pass: lane 0 of each spin resolves its hit
+//      (stepping._resolve_mesh_hits: the bounce-0 uniform drawn in-kernel,
+//      reflect or cross, rem -= d), sets iters = 1 and appends the spin to
+//      a device worklist if it still collides;
+//   b. bounce_pass: a fixed grid of blocks walks the worklist, one warp per
+//      spin, and loops that spin's later bounces to the end of its step;
+//   c. finish_pass writes r0 + dir * rem and iters >= max_iter.
+// What bounds it: as for K2, the record tests, ~180 per spin and pass on
+// the bench bundle; the later passes concern the spins the first one
+// reflected, and their rows are read through L2 (no shared-memory tile can
+// serve a spin's later bounces, which may move it to another cell).
+//
 // The record test keeps _mt_block's order (inv_det = 1 / det, then t, u
 // and v as products with it), so the kernel and the plain torch version
 // differ only by nvcc's FMA contraction.
 //
-// C interface (bound with ctypes): mesh_hit_scratch_words gives the int32
-// scratch a query needs; each launch entry point returns the first CUDA
-// error of its launches (0 on success).
+// The resolves follow the plain version's torch operators one IEEE
+// operation each (krng::mul_rn and friends, csrc/threefry.cuh), so K9 and
+// the plain loop differ only where K2 and the plain query do.
+//
+// C interface (bound with ctypes): mesh_hit_scratch_words and
+// mesh_step_scratch_words give the int32 scratch a query or a step needs;
+// each launch entry point returns the first CUDA error of its launches (0
+// on success).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
+
+#include "threefry.cuh"
 
 namespace {
+
+using krng::add_rn;
+using krng::div_rn;
+using krng::mul_rn;
+using krng::sqrt_rn;
+using krng::sub_rn;
 
 constexpr int kTile = 128;   // threads of a hit block; most spins per tile
 constexpr int kStage = 64;   // most records staged at once
 constexpr int kScan = 1024;  // threads of the one-block scan
+constexpr int kBounce = 256;  // threads of a K9 block: eight warps
 
 __device__ __forceinline__ float inf_of(float) { return CUDART_INF_F; }
 __device__ __forceinline__ double inf_of(double) { return CUDART_INF; }
+// stepping._hit_slack.
+__device__ __forceinline__ float slack_of(float) { return 1e-5f; }
+__device__ __forceinline__ double slack_of(double) { return 1e-12; }
+
+// A classic mesh step's per-spin state after its first bounce pass, which
+// K9 carries to the end of the step, and what the resolves read.
+template <typename T>
+struct StepState {
+  T* r0;                    // (n, 3)
+  T* dir;                   // (n, 3)
+  T* rem;                   // (n,)
+  int* iters;               // (n,) collision checks so far
+  int* crossings;           // (n,) membrane transits
+  int* list;                // spins still colliding after the first pass
+  int* n_list;              // () their count
+  const int* ids;           // (n,) spin ids keying the draws
+  const int* seed;          // () RNG key
+  const int* t;             // () step
+  const T* perm;            // () perm_prob
+  const T* eps;             // () epsilon
+  int max_iter;
+};
 
 // Floor division by a positive divisor.
 __device__ __forceinline__ int floor_div(int a, int m) {
   return a >= 0 ? a / m : -((-a + m - 1) / m);
 }
 
-// The spin's halo cell; s gets r0 shifted by the same whole voxels and d
-// the direction.
+// The halo cell of the segment p + [0, rm] * d; s gets p shifted by the
+// same whole voxels.
+template <typename T>
+__device__ __forceinline__ int halo_cell_of(const T p[3], const T d[3], T rm,
+                                            const T* __restrict__ sv_width,
+                                            const T* __restrict__ voxel,
+                                            const int nsv[3], T s[3]) {
+  int c[3];
+  for (int a = 0; a < 3; ++a) {
+    const T e = p[a] + d[a] * rm;
+    const T lo = e < p[a] ? e : p[a];
+    const int base = (int)floor(lo / sv_width[a]);
+    const int shift = floor_div(base, nsv[a]);
+    c[a] = base - shift * nsv[a];
+    s[a] = p[a] - (T)shift * voxel[a];
+  }
+  return (c[0] * nsv[1] + c[1]) * nsv[2] + c[2];
+}
+
+// Spin i's halo cell; s gets r0 shifted by the same whole voxels and d the
+// direction.
 template <typename T>
 __device__ __forceinline__ int halo_cell(const T* __restrict__ r0,
                                          const T* __restrict__ dir,
@@ -76,19 +149,43 @@ __device__ __forceinline__ int halo_cell(const T* __restrict__ r0,
                                          const T* __restrict__ sv_width,
                                          const T* __restrict__ voxel,
                                          const int nsv[3], T s[3], T d[3]) {
-  int c[3];
-  const T rm = rem[i];
+  T p[3];
   for (int a = 0; a < 3; ++a) {
-    const T p = r0[3 * i + a];
+    p[a] = r0[3 * i + a];
     d[a] = dir[3 * i + a];
-    const T e = p + d[a] * rm;
-    const T lo = e < p ? e : p;
-    const int base = (int)floor(lo / sv_width[a]);
-    const int shift = floor_div(base, nsv[a]);
-    c[a] = base - shift * nsv[a];
-    s[a] = p - (T)shift * voxel[a];
   }
-  return (c[0] * nsv[1] + c[1]) * nsv[2] + c[2];
+  return halo_cell_of(p, d, rem[i], sv_width, voxel, nsv, s);
+}
+
+// One record's Moller-Trumbore test (_mt_block's order: inv_det = 1 / det,
+// then t, u and v as products with it) of the ray s + t d against the
+// triangle with corner A = c[0..2] and edges E1 = c[3..5], E2 = c[6..8]:
+// true with t where the ray crosses the triangle within the EDGE_TOL band
+// strictly forward. K2's hit pass and K9 share it, so both test a record
+// to the same bits.
+template <typename T>
+__device__ __forceinline__ bool record_test(const T s[3], const T d[3],
+                                            const T c[9], T lo_tol, T hi_tol,
+                                            T* t_out) {
+  const T ax = c[0], ay = c[1], az = c[2];
+  const T e1x = c[3], e1y = c[4], e1z = c[5];
+  const T e2x = c[6], e2y = c[7], e2z = c[8];
+  const T tx = s[0] - ax, ty = s[1] - ay, tz = s[2] - az;
+  // P = dir x E2, Q = T x E1.
+  const T px = d[1] * e2z - d[2] * e2y;
+  const T py = d[2] * e2x - d[0] * e2z;
+  const T pz = d[0] * e2y - d[1] * e2x;
+  const T qx = ty * e1z - tz * e1y;
+  const T qy = tz * e1x - tx * e1z;
+  const T qz = tx * e1y - ty * e1x;
+  const T det = px * e1x + py * e1y + pz * e1z;
+  const T inv_det = T(1) / det;
+  const T t = inv_det * (qx * e2x + qy * e2y + qz * e2z);
+  const T u = inv_det * (px * tx + py * ty + pz * tz);
+  const T v = inv_det * (qx * d[0] + qy * d[1] + qz * d[2]);
+  *t_out = t;
+  return det != T(0) && u >= lo_tol && u <= hi_tol && v >= lo_tol &&
+         v <= hi_tol && u + v <= hi_tol && t > T(0);
 }
 
 template <typename T>
@@ -170,7 +267,71 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
+// torch.sum over the last axis of an (n, 3) tensor, as the plain
+// version's geometry.normalize takes it: stored spins-fastest (the first
+// bounce pass's rows, strides (1, n)) the three values are summed in
+// order; stored contiguous (the compacted passes' gathered rows) torch's
+// CUDA reduction splits them over two lanes, (a0 + a2) + a1. Both orders
+// are torch's internals, found by probing torch 2.11.0+cu128 on an H100;
+// phase 19 of chip_smoke.py holds the mesh step to the plain loop bit for
+// bit, so a torch that sums in another order fails it.
+template <typename T, bool kGathered>
+__device__ __forceinline__ T sum3_last(T a0, T a1, T a2) {
+  return kGathered ? add_rn(add_rn(a0, a2), a1) : add_rn(add_rn(a0, a1), a2);
+}
+
+// stepping._resolve_mesh_hits for one spin with a hit at distance d on a
+// triangle of unit normal nrm (either orientation): cross epsilon past the
+// wall keeping the direction, or reflect (geometry.crossing /
+// geometry.reflect), then rem -= d. One IEEE operation per torch operator,
+// with no FMA contraction.
+template <typename T, bool kGathered>
+__device__ __forceinline__ void resolve_hit(T p[3], T dd[3], T& rm, T d,
+                                            const T nrm[3], bool through,
+                                            T eps) {
+  T v[3];
+  for (int a = 0; a < 3; ++a) v[a] = mul_rn(d, dd[a]);
+  const T dp = add_rn(add_rn(mul_rn(v[0], nrm[0]), mul_rn(v[1], nrm[1])),
+                      mul_rn(v[2], nrm[2]));
+  if (through) {
+    const T sgn = dp < T(0) ? T(-1) : T(1);
+    for (int a = 0; a < 3; ++a) {
+      p[a] = add_rn(add_rn(p[a], v[a]), mul_rn(eps, sgn * nrm[a]));
+    }
+  } else {
+    const T sgn = dp > T(0) ? T(-1) : T(1);
+    const T two_dp = mul_rn(T(2), -fabs(dp));
+    T w[3];
+    for (int a = 0; a < 3; ++a) {
+      const T na = sgn * nrm[a];
+      p[a] = add_rn(add_rn(p[a], v[a]), mul_rn(eps, na));
+      w[a] = sub_rn(v[a], mul_rn(two_dp, na));
+    }
+    const T norm = sqrt_rn(sum3_last<T, kGathered>(
+        mul_rn(w[0], w[0]), mul_rn(w[1], w[1]), mul_rn(w[2], w[2])));
+    for (int a = 0; a < 3; ++a) dd[a] = div_rn(w[a], norm);
+  }
+  rm = sub_rn(rm, d);
+}
+
+// The lexicographic minimum of (t, record) over the L aligned lanes of a
+// warp, left in every one of them.
 template <typename T>
+__device__ __forceinline__ void min_butterfly(T& best, int& best_k, int L) {
+  for (int off = L >> 1; off > 0; off >>= 1) {
+    const T t_o = __shfl_xor_sync(0xffffffffu, best, off);
+    const int k_o = __shfl_xor_sync(0xffffffffu, best_k, off);
+    if (t_o < best || (t_o == best && k_o < best_k)) {
+      best = t_o;
+      best_k = k_o;
+    }
+  }
+}
+
+// kResolve (the classic step's first pass): instead of writing min_d and
+// the normal, lane 0 of each spin resolves the hit into st (the bounce-0
+// uniform drawn here) and lists the spin for K9 if it still collides.
+template <typename T, bool kResolve>
 __global__ void __launch_bounds__(kTile) hit_pass(
     const T* __restrict__ r0, const T* __restrict__ dir,
     const T* __restrict__ rem, const T* __restrict__ tri,
@@ -178,7 +339,7 @@ __global__ void __launch_bounds__(kTile) hit_pass(
     const T* __restrict__ voxel, int n0, int n1, int n2, int k_pad,
     int stage, T edge_tol, const int* __restrict__ perm,
     const int4* __restrict__ tiles, const int* __restrict__ n_tiles,
-    T* __restrict__ out_d, T* __restrict__ out_n) {
+    T* __restrict__ out_d, T* __restrict__ out_n, StepState<T> st) {
   // Raw records as they arrive (double-buffered), and the staged columns:
   // A (0-2), E1 (3-5), E2 (6-8), normal (9-11).
   __shared__ __align__(16) T raw[2][kStage * 12];
@@ -247,26 +408,10 @@ __global__ void __launch_bounds__(kTile) hit_pass(
     issue(st + 2);
     if (live) {
       for (int kl = (lane - k0) & (L - 1); kl < nrec; kl += L) {
-        const T ax = col[0][kl], ay = col[1][kl], az = col[2][kl];
-        const T e1x = col[3][kl], e1y = col[4][kl], e1z = col[5][kl];
-        const T e2x = col[6][kl], e2y = col[7][kl], e2z = col[8][kl];
-        const T tx = s[0] - ax, ty = s[1] - ay, tz = s[2] - az;
-        // P = dir x E2, Q = T x E1.
-        const T px = d[1] * e2z - d[2] * e2y;
-        const T py = d[2] * e2x - d[0] * e2z;
-        const T pz = d[0] * e2y - d[1] * e2x;
-        const T qx = ty * e1z - tz * e1y;
-        const T qy = tz * e1x - tx * e1z;
-        const T qz = tx * e1y - ty * e1x;
-        const T det = px * e1x + py * e1y + pz * e1z;
-        const T inv_det = T(1) / det;
-        const T t = inv_det * (qx * e2x + qy * e2y + qz * e2z);
-        const T u = inv_det * (px * tx + py * ty + pz * tz);
-        const T v = inv_det * (qx * d[0] + qy * d[1] + qz * d[2]);
-        const bool ok = det != T(0) && u >= lo_tol && u <= hi_tol &&
-                        v >= lo_tol && v <= hi_tol && u + v <= hi_tol &&
-                        t > T(0);
-        if (ok && t < best) {
+        T c[9];
+        for (int q = 0; q < 9; ++q) c[q] = col[q][kl];
+        T t;
+        if (record_test(s, d, c, lo_tol, hi_tol, &t) && t < best) {
           best = t;
           best_k = k0 + kl;
         }
@@ -275,19 +420,136 @@ __global__ void __launch_bounds__(kTile) hit_pass(
   }
   // The spin's L lanes are aligned within a warp: a butterfly leaves the
   // lexicographic minimum of (t, record) in every lane.
-  for (int off = L >> 1; off > 0; off >>= 1) {
-    const T t_o = __shfl_xor_sync(0xffffffffu, best, off);
-    const int k_o = __shfl_xor_sync(0xffffffffu, best_k, off);
-    if (t_o < best || (t_o == best && k_o < best_k)) {
-      best = t_o;
-      best_k = k_o;
-    }
-  }
-  if (live && lane == 0) {
+  min_butterfly(best, best_k, L);
+  if (!live || lane != 0) return;
+  if (!kResolve) {
     out_d[i] = best;
     for (int a = 0; a < 3; ++a) {
       out_n[3 * i + a] = best_k >= 0 ? row[12 * best_k + 9 + a] : T(0);
     }
+    return;
+  }
+  // stepping.step_mesh's first pass for spin i: hit = d <= rem + slack,
+  // collision check 1 draws at bounce index 0.
+  T p[3], nrm[3];
+  for (int a = 0; a < 3; ++a) {
+    p[a] = r0[3 * i + a];
+    nrm[a] = best_k >= 0 ? row[12 * best_k + 9 + a] : T(0);
+  }
+  T rm = rem[i];
+  const bool hit = best <= add_rn(rm, slack_of(T(0)));
+  int cross = 0;
+  if (hit) {
+    cross = krng::bounce_uniform<T>((uint32_t)__ldg(st.seed),
+                                    (uint32_t)__ldg(st.t),
+                                    (uint32_t)st.ids[i], 0u) < *st.perm;
+    resolve_hit<T, false>(p, d, rm, best, nrm, cross, *st.eps);
+  }
+  for (int a = 0; a < 3; ++a) {
+    st.r0[3 * i + a] = p[a];
+    st.dir[3 * i + a] = d[a];
+  }
+  st.rem[i] = rm;
+  st.iters[i] = 1;
+  st.crossings[i] = cross;
+  if (hit && rm > T(0) && 1 < st.max_iter) {
+    st.list[atomicAdd(st.n_list, 1)] = i;
+  }
+}
+
+// K9: the later bounces of the spins the first pass listed, each to the
+// end of its step (stepping.step_mesh's compacted loop). A fixed grid of
+// blocks walks the list, one warp per spin: the warp's 32 lanes split the
+// spin's halo row (lane j tests records j, j + 32, ... in global memory,
+// keeping its first minimum), reduce by (t, record) as the hit pass does,
+// and every lane then resolves the same hit. The spin's row is chosen again
+// for every bounce: a row holds only the segments whose bounding-box
+// minimum corner lies in its cell (engine/mesh_accel.py), so a bounce that
+// leaves the cell needs another row. Collision check k draws at bounce
+// index k - 1.
+template <typename T>
+__global__ void __launch_bounds__(kBounce) bounce_pass(
+    StepState<T> st, const T* __restrict__ tri,
+    const int* __restrict__ counts, const T* __restrict__ sv_width,
+    const T* __restrict__ voxel, int n0, int n1, int n2, int k_pad,
+    T edge_tol) {
+  const int lane = threadIdx.x & 31;
+  const int warp = (blockIdx.x * kBounce + threadIdx.x) >> 5;
+  const int n_warps = (gridDim.x * kBounce) >> 5;
+  const int nsv[3] = {n0, n1, n2};
+  const T lo_tol = -edge_tol;
+  const T hi_tol = T(1) + edge_tol;
+  const uint32_t seed = (uint32_t)__ldg(st.seed);
+  const uint32_t t_step = (uint32_t)__ldg(st.t);
+  const T perm = *st.perm, eps = *st.eps;
+  const int m = *st.n_list;
+  for (int w = warp; w < m; w += n_warps) {
+    const int i = st.list[w];
+    T p[3], dd[3];
+    for (int a = 0; a < 3; ++a) {
+      p[a] = st.r0[3 * i + a];
+      dd[a] = st.dir[3 * i + a];
+    }
+    T rm = st.rem[i];
+    int iters = st.iters[i], cross = st.crossings[i];
+    const uint32_t id = (uint32_t)st.ids[i];
+    bool active = true;
+    while (active) {
+      T s[3];
+      const int cell = halo_cell_of(p, dd, rm, sv_width, voxel, nsv, s);
+      const int cnt = counts[cell];
+      const T* row = tri + (size_t)cell * k_pad * 12;
+      T best = inf_of(T(0));
+      int best_k = -1;
+      for (int k = lane; k < cnt; k += 32) {
+        const T* q = row + 12 * k;
+        const T c[9] = {q[0], q[1], q[2], q[3] - q[0], q[4] - q[1],
+                        q[5] - q[2], q[6] - q[0], q[7] - q[1], q[8] - q[2]};
+        T t;
+        if (record_test(s, dd, c, lo_tol, hi_tol, &t) && t < best) {
+          best = t;
+          best_k = k;
+        }
+      }
+      min_butterfly(best, best_k, 32);
+      ++iters;
+      const bool hit = best <= add_rn(rm, slack_of(T(0)));
+      if (hit) {
+        T nrm[3];
+        for (int a = 0; a < 3; ++a) nrm[a] = row[12 * best_k + 9 + a];
+        const bool through =
+            krng::bounce_uniform<T>(seed, t_step, id,
+                                    (uint32_t)(iters - 1)) < perm;
+        resolve_hit<T, true>(p, dd, rm, best, nrm, through, eps);
+        cross += through;
+      }
+      active = hit && rm > T(0) && iters < st.max_iter;
+    }
+    if (lane == 0) {
+      for (int a = 0; a < 3; ++a) {
+        st.r0[3 * i + a] = p[a];
+        st.dir[3 * i + a] = dd[a];
+      }
+      st.rem[i] = rm;
+      st.iters[i] = iters;
+      st.crossings[i] = cross;
+    }
+  }
+}
+
+// The step's end: positions r0 + dir * rem as (3, n) rows, and exc.
+template <typename T>
+__global__ void __launch_bounds__(256) finish_pass(StepState<T> st, int n,
+                                                   T* __restrict__ out,
+                                                   uint8_t* __restrict__ exc) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const T rm = st.rem[i];
+    for (int a = 0; a < 3; ++a) {
+      out[(size_t)a * n + i] =
+          add_rn(st.r0[3 * i + a], mul_rn(st.dir[3 * i + a], rm));
+    }
+    exc[i] = st.iters[i] >= st.max_iter;
   }
 }
 
@@ -326,12 +588,36 @@ int grid_for(int n, int threads) {
   return (int)(want < 65536 ? want : 65536);
 }
 
+// A classic step's worklist after the query scratch: its count (padded to
+// 16 bytes) and up to n spin indices.
+long long step_scratch_words(int n, int n_cells) {
+  return scratch_words(n, n_cells) + 4 + n;
+}
+
+// K9's grid: as many blocks as fit on the card at once.
 template <typename T>
+int bounce_blocks() {
+  static int blocks = 0;
+  if (blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bounce_pass<T>,
+                                                  kBounce, 0);
+    blocks = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  return blocks;
+}
+
+// The nearest-hit query (kResolve false: min_d and normal into out_d and
+// out_n), or a classic step's first pass (kResolve true: into st), as a
+// memset and the four kernels on the caller's stream.
+template <typename T, bool kResolve>
 int launch(const void* r0, const void* dir, const void* rem, const void* tri,
            const void* counts, const void* sv_width, const void* voxel, int n,
            int n0, int n1, int n2, int k_pad, int chunk, T edge_tol,
-           void* out_d, void* out_n, void* scratch, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
+           void* out_d, void* out_n, const StepState<T>& step, void* scratch,
+           cudaStream_t st) {
   const int n_cells = n0 * n1 * n2;
   const Scratch sc = carve(scratch, n, n_cells);
   cudaError_t rc = cudaMemsetAsync(sc.fill, 0, sizeof(int) * n_cells, st);
@@ -344,11 +630,54 @@ int launch(const void* r0, const void* dir, const void* rem, const void* tri,
   scatter_pass<<<grid_for(n, 256), 256, 0, st>>>(sc.cell_of, sc.rank_of,
                                                  sc.start, n, sc.perm);
   const int stage = chunk < kStage ? chunk : kStage;
-  hit_pass<T><<<max_tiles(n, n_cells), kTile, 0, st>>>(
+  hit_pass<T, kResolve><<<max_tiles(n, n_cells), kTile, 0, st>>>(
       (const T*)r0, (const T*)dir, (const T*)rem, (const T*)tri,
       (const int*)counts, (const T*)sv_width, (const T*)voxel, n0, n1, n2,
       k_pad, stage, edge_tol, sc.perm, sc.tiles, sc.n_tiles, (T*)out_d,
-      (T*)out_n);
+      (T*)out_n, step);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_query(const void* r0, const void* dir, const void* rem,
+                 const void* tri, const void* counts, const void* sv_width,
+                 const void* voxel, int n, int n0, int n1, int n2, int k_pad,
+                 int chunk, T edge_tol, void* out_d, void* out_n,
+                 void* scratch, void* stream) {
+  return launch<T, false>(r0, dir, rem, tri, counts, sv_width, voxel, n, n0,
+                          n1, n2, k_pad, chunk, edge_tol, out_d, out_n,
+                          StepState<T>{}, scratch, (cudaStream_t)stream);
+}
+
+// One classic mesh step: the first pass with its resolve, K9 over the spins
+// it listed, and the tail.
+template <typename T>
+int launch_step(const void* r0, const void* dir, const void* rem,
+                const void* tri, const void* counts, const void* sv_width,
+                const void* voxel, int n, int n0, int n1, int n2, int k_pad,
+                int chunk, T edge_tol, const void* ids, const void* seed,
+                const void* t, const void* perm, const void* eps,
+                int max_iter, void* s_r0, void* s_dir, void* s_rem,
+                void* iters, void* crossings, void* out, void* exc,
+                void* scratch, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  int* list = static_cast<int*>(scratch) + scratch_words(n, n0 * n1 * n2);
+  StepState<T> step{(T*)s_r0,          (T*)s_dir,        (T*)s_rem,
+                    (int*)iters,       (int*)crossings,  list + 4,
+                    list,              (const int*)ids,  (const int*)seed,
+                    (const int*)t,     (const T*)perm,   (const T*)eps,
+                    max_iter};
+  cudaError_t rc = cudaMemsetAsync(list, 0, sizeof(int), st);
+  if (rc != cudaSuccess) return (int)rc;
+  int err = launch<T, true>(r0, dir, rem, tri, counts, sv_width, voxel, n,
+                            n0, n1, n2, k_pad, chunk, edge_tol, nullptr,
+                            nullptr, step, scratch, st);
+  if (err != 0) return err;
+  bounce_pass<T><<<bounce_blocks<T>(), kBounce, 0, st>>>(
+      step, (const T*)tri, (const int*)counts, (const T*)sv_width,
+      (const T*)voxel, n0, n1, n2, k_pad, edge_tol);
+  finish_pass<T><<<grid_for(n, 256), 256, 0, st>>>(step, n, (T*)out,
+                                                   (uint8_t*)exc);
   return (int)cudaGetLastError();
 }
 
@@ -360,15 +689,19 @@ long long mesh_hit_scratch_words(int n, int n_cells) {
   return scratch_words(n, n_cells);
 }
 
+long long mesh_step_scratch_words(int n, int n_cells) {
+  return step_scratch_words(n, n_cells);
+}
+
 int mesh_hit_launch_f32(const void* r0, const void* dir, const void* rem,
                         const void* tri, const void* counts,
                         const void* sv_width, const void* voxel, int n, int n0,
                         int n1, int n2, int k_pad, int chunk, float edge_tol,
                         void* out_d, void* out_n, void* scratch,
                         void* stream) {
-  return launch<float>(r0, dir, rem, tri, counts, sv_width, voxel, n, n0, n1,
-                       n2, k_pad, chunk, edge_tol, out_d, out_n, scratch,
-                       stream);
+  return launch_query<float>(r0, dir, rem, tri, counts, sv_width, voxel, n,
+                             n0, n1, n2, k_pad, chunk, edge_tol, out_d, out_n,
+                             scratch, stream);
 }
 
 int mesh_hit_launch_f64(const void* r0, const void* dir, const void* rem,
@@ -377,9 +710,42 @@ int mesh_hit_launch_f64(const void* r0, const void* dir, const void* rem,
                         int n1, int n2, int k_pad, int chunk, double edge_tol,
                         void* out_d, void* out_n, void* scratch,
                         void* stream) {
-  return launch<double>(r0, dir, rem, tri, counts, sv_width, voxel, n, n0,
-                        n1, n2, k_pad, chunk, edge_tol, out_d, out_n, scratch,
-                        stream);
+  return launch_query<double>(r0, dir, rem, tri, counts, sv_width, voxel, n,
+                              n0, n1, n2, k_pad, chunk, edge_tol, out_d,
+                              out_n, scratch, stream);
+}
+
+// r0, dir (n, 3) and rem (n,) start the step; ids, seed, t, perm, eps and
+// max_iter as StepState; s_r0, s_dir, s_rem, iters and crossings receive
+// the state K9 carries, out the (3, n) end positions and exc the flags.
+int mesh_step_launch_f32(const void* r0, const void* dir, const void* rem,
+                         const void* tri, const void* counts,
+                         const void* sv_width, const void* voxel, int n,
+                         int n0, int n1, int n2, int k_pad, int chunk,
+                         float edge_tol, const void* ids, const void* seed,
+                         const void* t, const void* perm, const void* eps,
+                         int max_iter, void* s_r0, void* s_dir, void* s_rem,
+                         void* iters, void* crossings, void* out, void* exc,
+                         void* scratch, void* stream) {
+  return launch_step<float>(r0, dir, rem, tri, counts, sv_width, voxel, n, n0,
+                            n1, n2, k_pad, chunk, edge_tol, ids, seed, t,
+                            perm, eps, max_iter, s_r0, s_dir, s_rem, iters,
+                            crossings, out, exc, scratch, stream);
+}
+
+int mesh_step_launch_f64(const void* r0, const void* dir, const void* rem,
+                         const void* tri, const void* counts,
+                         const void* sv_width, const void* voxel, int n,
+                         int n0, int n1, int n2, int k_pad, int chunk,
+                         double edge_tol, const void* ids, const void* seed,
+                         const void* t, const void* perm, const void* eps,
+                         int max_iter, void* s_r0, void* s_dir, void* s_rem,
+                         void* iters, void* crossings, void* out, void* exc,
+                         void* scratch, void* stream) {
+  return launch_step<double>(r0, dir, rem, tri, counts, sv_width, voxel, n,
+                             n0, n1, n2, k_pad, chunk, edge_tol, ids, seed, t,
+                             perm, eps, max_iter, s_r0, s_dir, s_rem, iters,
+                             crossings, out, exc, scratch, stream);
 }
 
 }  // extern "C"

@@ -17,16 +17,24 @@ Layout
     The classic engine's substrate specs (free, sphere, cylinder,
     ellipsoid, mesh) and ``spec_from_numpy``.
 ``stepping``
-    One time step per substrate kind: the analytic bounce loops and the
-    per-bounce mesh step.
+    One time step per substrate kind: the plain analytic bounce loops and
+    the per-bounce mesh step, and ``step``, which sends a step to the
+    step kernels on CUDA.
+``analytic_kernel``
+    One classic step on an analytic substrate: the CUDA kernel's binding
+    and its plain torch version.
 ``core``
-    The classic engine's time loop (``run_window``), signal reduction,
-    the float32 matmul guard.
+    The classic engine's step body and time loop (``run_window``), which
+    replays one captured CUDA graph per step; signal reduction, the
+    float32 matmul guard.
+``graphs``
+    One step of a window captured as a CUDA graph and replayed, cached per
+    spec and window shape, for both engines.
 ``mesh_accel``
     The classic mesh table pack (host NumPy) and its gather query.
 ``mesh_kernel``
-    Nearest hit per spin on the halo layout: the CUDA kernel's binding and
-    its plain torch version.
+    Nearest hit per spin on the halo layout, and one whole classic mesh
+    step on it: the CUDA kernels' bindings and their plain torch versions.
 ``fused``
     The fused mesh engine: the table pack (host NumPy), the epoch body and
     the window loop, which replays one captured CUDA graph per epoch.
@@ -39,6 +47,6 @@ Layout
 ``_build``
     Builds ``csrc/*.cu`` with nvcc at first use and loads it with ctypes.
 ``config``
-    Engine and query selection, the fused engine's knobs and its CUDA
-    graph switch.
+    Engine and query selection, the fused engine's knobs and the two
+    engines' CUDA graph switches.
 """

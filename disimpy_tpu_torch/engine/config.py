@@ -30,6 +30,12 @@ device runs its full epochs as replays of one captured CUDA graph
 (``engine/fused.run_window_fused``); False runs every epoch eagerly, the
 same kernels launched from Python one by one, which gives the same values
 bit for bit and serves to compare the two. CPU runs are always eager.
+
+``classic_cuda_graph``: the same for the classic engine: when True (the
+default), a classic window on a CUDA device runs every step as a replay of
+one captured CUDA graph of ``engine/core.step_body``; False runs each step
+eagerly. The per-cell mesh layout's steps sync the host (its gather query
+keeps the plain bounce loop) and always run eagerly.
 """
 
 use_fused = None
@@ -37,6 +43,7 @@ fused_resort_every = 4
 fused_cell_steps = None
 fused_count_units = False
 fused_cuda_graph = True
+classic_cuda_graph = True
 
 
 def mesh_engine(dtype, needs_traj):

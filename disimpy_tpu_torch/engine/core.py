@@ -10,12 +10,19 @@ contraction.
 Every random draw is keyed with the id-keyed threefry streams of
 ``engine/krng.py``, so a spin's walk does not depend on how the ensemble is
 ordered or split.
+
+A window is one step function, :func:`step_body`, run once per time step
+on a :class:`ClassicState` of buffers. On a CUDA device each step is kernel
+launches with no host read-back, so the window replays one captured CUDA
+graph of it per step (``engine/graphs.py``), as the JAX package runs its
+classic window as one compiled program (a ``lax.scan`` over the steps).
 """
+
+import dataclasses
 
 import torch
 
-from . import rng
-from .stepping import STEP_FUNCTIONS
+from . import graphs, stepping
 
 # Mixed into the simulation seed for the free-diffusion step directions, so
 # they are independent of the mesh engine's streams (engine/fused.py).
@@ -41,6 +48,122 @@ def require_full_fp32():
         )
 
 
+@dataclasses.dataclass
+class ClassicState:
+    """A classic window's buffers, which :func:`step_body` updates in place.
+
+    ``positions`` (3, n), ``ids`` (n,) int32, ``iter_exc`` (n,) bool,
+    ``phases`` (n_meas, n); ``g`` (n_t, n_meas, 3) the window's phase
+    coefficients; ``scalars`` (2,) int32 (draw key, absolute step) and
+    ``step`` (1,) int64 (the step's index in the window), which each step
+    advances by ``advance`` and 1; ``epsilon`` a float or the state's copy
+    of a per-spin tensor; ``compartments`` (crossings, parity,
+    intra_steps) or None; ``trajectory`` (n_t, 3, n) or None.
+    """
+
+    positions: torch.Tensor
+    ids: torch.Tensor
+    iter_exc: torch.Tensor
+    phases: torch.Tensor
+    g: torch.Tensor
+    scalars: torch.Tensor
+    advance: torch.Tensor
+    step: torch.Tensor
+    epsilon: object
+    compartments: tuple = None
+    trajectory: torch.Tensor = None
+
+    @classmethod
+    def like(cls, positions, phases, iter_exc, g_eff, epsilon,
+             compartments=None, n_collect=None):
+        """Empty buffers of the given tensors' shapes and devices, with a
+        trajectory of ``n_collect`` steps unless it is None."""
+        from .draw_kernel import device_scalars
+
+        device = positions.device
+        return cls(
+            positions=torch.empty_like(positions),
+            ids=torch.empty(positions.shape[1], dtype=torch.int32,
+                            device=device),
+            iter_exc=torch.empty_like(iter_exc),
+            phases=torch.empty_like(phases),
+            g=torch.empty_like(g_eff),
+            scalars=torch.empty(2, dtype=torch.int32, device=device),
+            advance=device_scalars((0, 1), device),
+            step=torch.empty(1, dtype=torch.int64, device=device),
+            epsilon=(torch.empty_like(epsilon)
+                     if isinstance(epsilon, torch.Tensor) else epsilon),
+            compartments=None if compartments is None else tuple(
+                torch.empty_like(c) for c in compartments),
+            trajectory=(torch.empty((n_collect,) + tuple(positions.shape),
+                                    dtype=positions.dtype, device=device)
+                        if n_collect is not None else None),
+        )
+
+    def load(self, positions, ids, iter_exc, phases, g_eff, seed_k, t0,
+             epsilon, compartments=None):
+        """Copy a window's start into the buffers, with the scalars
+        (seed_k, t0) and the step index at 0."""
+        from .draw_kernel import device_scalars
+
+        device = self.positions.device
+        self.positions.copy_(positions)
+        self.ids.copy_(ids)
+        self.iter_exc.copy_(iter_exc)
+        self.phases.copy_(phases)
+        self.g.copy_(g_eff)
+        self.scalars.copy_(device_scalars((seed_k, t0), device))
+        self.step.zero_()
+        if isinstance(self.epsilon, torch.Tensor):
+            self.epsilon.copy_(epsilon)
+        if self.compartments is not None:
+            for mine, theirs in zip(self.compartments, compartments):
+                mine.copy_(theirs)
+
+
+def step_body(kind, spec, st, max_iter, blocks=1):
+    """Run one time step on the :class:`ClassicState` ``st``, in place.
+
+    Steps every spin (``stepping.step``: the step kernels on CUDA, the
+    plain step functions on the CPU), then folds the step into ``st``: the
+    phase product ``g[step] @ positions`` (the coefficients read through
+    the device index; one (n_meas, 3) x (3, n / blocks) product per block
+    of a sweep), iter_exc ``|=``, the exchange trackers (parity flips on
+    odd transits; the spin dwells the whole step in the compartment it ends
+    it in), the trajectory row; then the positions, and the scalars and the
+    step index advance. Nothing here syncs the host on CUDA (for the
+    per-cell mesh layout the plain bounce loop does), so one call can be
+    captured into a CUDA graph and replayed.
+    """
+    positions, exc, cross = stepping.step(
+        kind, st.positions, spec, st.epsilon, max_iter, st.scalars[0],
+        st.scalars[1], st.ids)
+    g = st.g.index_select(0, st.step)[0]
+    if blocks == 1:
+        st.phases += g @ positions
+    else:
+        width = positions.shape[1] // blocks
+        for b in range(blocks):
+            cols = slice(b * width, (b + 1) * width)
+            st.phases[:, cols] += g @ positions[:, cols].contiguous()
+    st.iter_exc |= exc
+    if st.compartments is not None:
+        crossings, parity, intra_steps = st.compartments
+        crossings += cross
+        parity ^= (cross & 1).bool()
+        intra_steps += parity.to(torch.int32)
+    if st.trajectory is not None:
+        st.trajectory.index_copy_(0, st.step, positions[None])
+    st.positions.copy_(positions)
+    st.scalars += st.advance
+    st.step += 1
+
+
+# Captured steps by id of their spec, then by window shape
+# (engine/graphs.py).
+_GRAPHS = {}
+
+
 def run_window(kind, spec, positions, phases, iter_exc, g_eff, ts, seed32,
                epsilon, max_iter, collect_positions=False, track=None,
                compartments=None, ids=None, blocks=1):
@@ -63,8 +186,8 @@ def run_window(kind, spec, positions, phases, iter_exc, g_eff, ts, seed32,
     g_eff : torch.Tensor
         (len(ts), n_meas, 3) per-step phase coefficients in the engine dtype.
     ts : sequence of int
-        Absolute time-step indices (they key the per-step streams, so a
-        windowed run reproduces a single full one).
+        Consecutive absolute time-step indices (they key the per-step
+        streams, so a windowed run reproduces a single full one).
     seed32 : int
         Int32-range value derived from the simulation seed.
     epsilon : float or torch.Tensor
@@ -89,6 +212,15 @@ def run_window(kind, spec, positions, phases, iter_exc, g_eff, ts, seed32,
         block's phases accrue through its own (n_meas, 3) x (3, n / blocks)
         product, the one a standalone run of that block does.
 
+    Every step is one :func:`step_body`. On a CUDA device with
+    ``config.classic_cuda_graph`` (the default) each step is a replay of
+    one captured CUDA graph, kept per (spec, window shape) for the spec's
+    ``graphs.GRAPHS_PER_SPEC`` most recent shapes, so no Python runs
+    between the steps' kernels and nothing is read back within the window
+    (the per-cell mesh layout's steps run eagerly: their plain bounce loop
+    syncs). Otherwise, and on the CPU, every step runs eagerly. Both give
+    the same values bit for bit. The arguments are not modified.
+
     Returns
     -------
     (positions, phases, iter_exc), trajectory [, compartments]
@@ -96,54 +228,67 @@ def run_window(kind, spec, positions, phases, iter_exc, g_eff, ts, seed32,
         None. With ``track="exchange"`` a third element holds the updated
         (crossings, parity, intra_steps).
     """
+    from . import config
+
     if track not in (None, "exchange"):
         raise ValueError(f"Incorrect value ({track!r}) for track")
     if track == "exchange" and (compartments is None
                                 or len(compartments) != 3):
         raise ValueError("track='exchange' needs compartments = (crossings, "
                          "parity, intra_steps)")
+    ts = [int(t) for t in ts]
+    if ts != list(range(ts[0], ts[0] + len(ts)) if ts else []):
+        raise ValueError("ts must be consecutive time steps")
     require_full_fp32()
-    step_fn = STEP_FUNCTIONS[kind]
     n = positions.shape[1]
-    dtype = positions.dtype
+    device = positions.device
     if ids is None:
-        ids = torch.arange(n, dtype=torch.int32, device=positions.device)
+        ids = torch.arange(n, dtype=torch.int32, device=device)
     seed_k = int(seed32) ^ (FREE_SALT if kind == "free" else CLASSIC_SALT)
-    width = n // blocks
-    if track == "exchange":
-        crossings, parity, intra_steps = compartments
-    trajectory = None
-    if collect_positions:
-        trajectory = torch.empty((len(ts), 3, n), dtype=dtype,
-                                 device=positions.device)
-    for i, t in enumerate(ts):
-        positions, exc_t, cross_t = step_fn(
-            positions, spec, epsilon, max_iter,
-            rng.step_directions(seed_k, t, ids, dtype),
-            rng.bounce_uniforms(seed_k, t, ids, dtype),
-        )
-        if blocks == 1:
-            phases = phases + g_eff[i] @ positions
+    compartments = compartments if track == "exchange" else None
+
+    def make_state():
+        return ClassicState.like(positions, phases, iter_exc, g_eff, epsilon,
+                                 compartments,
+                                 len(ts) if collect_positions else None)
+
+    graphed = (device.type == "cuda" and config.classic_cuda_graph
+               and len(ts) > 0 and not stepping.syncs_host(kind, spec))
+    if graphed:
+        eps_key = (tuple(epsilon.shape) if isinstance(epsilon, torch.Tensor)
+                   else float(epsilon))
+        entry = graphs.cached(_GRAPHS, spec, (
+            kind, n, phases.shape[0], len(ts), str(positions.dtype), eps_key,
+            int(max_iter), track, bool(collect_positions), blocks),
+            make_state)
+        entry.lock.acquire()
+        st = entry.state
+    else:
+        st = make_state()
+    try:
+        st.load(positions, ids, iter_exc, phases, g_eff, seed_k,
+                ts[0] if ts else 0, epsilon, compartments)
+
+        def body():
+            step_body(kind, spec, st, max_iter, blocks)
+
+        if graphed:
+            entry.run(body, len(ts))
         else:
-            phases = torch.cat([
-                phases[:, b * width:(b + 1) * width]
-                + g_eff[i] @ positions[:, b * width:(b + 1) * width]
-                .contiguous()
-                for b in range(blocks)
-            ], dim=1)
-        iter_exc = iter_exc | exc_t
+            for _ in ts:
+                body()
+        out = [(st.positions, st.phases, st.iter_exc), st.trajectory]
         if track == "exchange":
-            # Parity flips on odd transits; the spin dwells the whole step
-            # in the compartment it ends the step in.
-            crossings = crossings + cross_t
-            parity = parity ^ (cross_t & 1).bool()
-            intra_steps = intra_steps + parity.to(torch.int32)
-        if collect_positions:
-            trajectory[i] = positions
-    if track == "exchange":
-        return ((positions, phases, iter_exc), trajectory,
-                (crossings, parity, intra_steps))
-    return (positions, phases, iter_exc), trajectory
+            out.append(st.compartments)
+        if graphed:
+            # The static buffers serve the next window of this shape.
+            out = [None if o is None else (
+                tuple(t.clone() for t in o) if isinstance(o, tuple)
+                else o.clone()) for o in out]
+        return tuple(out)
+    finally:
+        if graphed:
+            entry.lock.release()
 
 
 def reduce_signal(phases, iter_exc, weights=None):

@@ -33,14 +33,13 @@ CUDA device a window replays it as one captured CUDA graph per full epoch,
 as the JAX package runs its window as one compiled program.
 """
 
-import collections
 import dataclasses
 import math
-import threading
-import weakref
 
 import numpy as np
 import torch
+
+from . import graphs
 
 # Per-step unit-count bit width and the maximum epoch length it allows.
 BITS = 6
@@ -862,80 +861,13 @@ def fold_transits(compartments, cross, n_valid):
             intra + after.sum(dim=0, dtype=torch.int32))
 
 
-class _EpochGraph:
-    """One full epoch of one window shape captured as a CUDA graph, with
-    the :class:`EpochState` it reads and writes (its static buffers), the
-    graph's own memory pool and the kernel launches one replay makes.
-    ``lock`` is held while a window uses it."""
-
-    def __init__(self, state):
-        self.state = state
-        self.graph = None
-        self.tally = None
-        self.lock = threading.Lock()
-
-    def run(self, spec, n_full, epsilon, max_iter):
-        """Run ``n_full`` full epochs on the loaded state by graph replay.
-
-        The first use runs one epoch eagerly (it builds and loads the
-        kernels and makes the quad-major table copy, none of which may
-        happen inside a capture), then captures the next on a stream of
-        its own; a capture that fails raises. Each replay counts the
-        kernel launches that the capture recorded
-        (``engine/launch_count.py``).
-        """
-        from . import fused_kernel, launch_count
-
-        J = spec.resort_every
-        done = 0
-        if self.graph is None:
-            epoch_body(spec, self.state, J, epsilon, max_iter)
-            done = 1
-            fused_kernel.quad_major(spec.table)
-            graph = torch.cuda.CUDAGraph()
-            device = self.state.positions.device
-            # One capture at a time: capture begins with a device
-            # synchronize and empty_cache(), which must not fall inside
-            # another thread's capture.
-            with _CAPTURE_LOCK, launch_count.capture() as tally, \
-                    torch.cuda.device(device), torch.cuda.graph(
-                        graph, stream=torch.cuda.Stream(device),
-                        capture_error_mode="thread_local"):
-                epoch_body(spec, self.state, J, epsilon, max_iter)
-            self.graph, self.tally = graph, tally
-        for _ in range(done, n_full):
-            self.graph.replay()
-            launch_count.replayed(self.tally)
-
-
-_CAPTURE_LOCK = threading.Lock()
-# Captured epochs by id of their spec, then by window shape, the most
-# recently used last. A spec keeps at most _GRAPHS_PER_SPEC shapes (the
-# two parts of a split run on one card use two); its entries (graphs,
-# pools, static buffers) go when the spec does.
+# Captured epochs by id of their spec, then by window shape
+# (engine/graphs.py).
 _GRAPHS = {}
-_GRAPHS_PER_SPEC = 2
-_GRAPHS_LOCK = threading.Lock()
 
 
 def _epoch_graph(spec, key, make_state):
-    with _GRAPHS_LOCK:
-        per_spec = _GRAPHS.get(id(spec))
-        if per_spec is None:
-            per_spec = _GRAPHS[id(spec)] = collections.OrderedDict()
-            weakref.finalize(spec, _GRAPHS.pop, id(spec), None)
-        entry = per_spec.pop(key, None) or _EpochGraph(make_state())
-        per_spec[key] = entry
-        for old in list(per_spec)[:-_GRAPHS_PER_SPEC]:
-            # A shape in use by another window stays until a later call.
-            if per_spec[old].lock.acquire(blocking=False):
-                victim = per_spec.pop(old)
-                device = victim.state.positions.device
-                if device.type == "cuda":
-                    # Its last replays may still be queued on the device.
-                    torch.cuda.synchronize(device)
-                victim.lock.release()
-        return entry
+    return graphs.cached(_GRAPHS, spec, key, make_state)
 
 
 def run_window_fused(spec, positions, phases, iter_exc, g_eff, ts, seed32,
@@ -966,7 +898,7 @@ def run_window_fused(spec, positions, phases, iter_exc, g_eff, ts, seed32,
     ``config.fused_cuda_graph`` (the default) the full epochs are replays
     of one captured CUDA graph, kept per (spec, spins, measurements,
     epochs, id_base, epsilon, max_iter, track, count) for the spec's
-    ``_GRAPHS_PER_SPEC`` most recent shapes, so no Python runs between
+    ``graphs.GRAPHS_PER_SPEC`` most recent shapes, so no Python runs between
     their kernels; a trailing partial epoch runs
     eagerly. Otherwise, and on the CPU, every epoch runs eagerly. Both give
     the same values bit for bit. The arguments are not modified.
@@ -1016,7 +948,12 @@ def run_window_fused(spec, positions, phases, iter_exc, g_eff, ts, seed32,
                 int(ts[0]), J, phases, g_flat, compartments)
         done = 0
         if graphed:
-            entry.run(spec, n_full, epsilon, max_iter)
+            from . import fused_kernel
+
+            # K1's quad-major table copy is made once, outside the capture.
+            entry.run(lambda: epoch_body(spec, st, J, epsilon, max_iter),
+                      n_full, prepare=lambda: fused_kernel.quad_major(
+                          spec.table))
             done = n_full
         for e in range(done, n_epochs):
             n_valid = min(n_t - e * J, J)

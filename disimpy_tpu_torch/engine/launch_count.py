@@ -16,7 +16,8 @@ import threading
 
 import torch
 
-KERNELS = ("fused_epoch", "krng_draw", "mesh_hit")
+KERNELS = ("fused_epoch", "krng_draw", "mesh_hit", "analytic_step",
+           "mesh_bounce")
 counts = dict.fromkeys(KERNELS, 0)
 # Guards the counts: the parts of a split run launch from several threads.
 _lock = threading.Lock()

@@ -15,6 +15,16 @@ is no fallback from one to the other.
 The kernel is the counterpart of the JAX package's Pallas kernel
 ``engine/pallas_mesh.py::_kernel``; both read the same table, the Pallas
 kernel after a transpose that the GPU does not need.
+
+``mesh_step`` runs one whole classic mesh step on that layout: the step's
+directions (the draw kernel), the query above on the whole batch with the
+first bounce resolved in its epilogue, then K9 (``bounce_pass`` in the same
+source) carrying the spins that still collide through their later bounces,
+one warp per spin, and a tail that writes the positions: a fixed sequence
+of launches with no host sync. It takes CUDA tensors only. Its plain
+version, to which ``stepping.step`` sends CPU tensors, is
+``stepping.step_mesh``, the JAX package's ``step_mesh`` while-loop
+(``disimpy_tpu/engine/stepping.py:262-341``) as a Python loop.
 """
 
 import ctypes
@@ -22,7 +32,7 @@ import math
 
 import torch
 
-from . import launch_count, mesh_accel
+from . import analytic_kernel, draw_kernel, launch_count, mesh_accel
 
 # Barycentric leak-proofing tolerance per engine dtype (the JAX package's
 # stepping._make_mesh_query).
@@ -36,6 +46,8 @@ FLOPS_PER_RECORD = 52
 
 _SYMBOLS = {torch.float32: "mesh_hit_launch_f32",
             torch.float64: "mesh_hit_launch_f64"}
+_STEP_SYMBOLS = {torch.float32: "mesh_step_launch_f32",
+                 torch.float64: "mesh_step_launch_f64"}
 
 
 def _check_halo(spec):
@@ -94,11 +106,8 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _nearest_hit_cuda(spec, r0, direction, rem):
-    from ._build import load
-
-    n = r0.shape[0]
-    device = r0.device
+def _check_spec(spec, device):
+    """The spec's table geometry: (dtype, n_cells, k_pad, chunk)."""
     dtype = spec.tri.dtype
     if dtype not in _SYMBOLS:
         raise ValueError(f"the mesh_hit kernel takes float32 or float64, "
@@ -108,9 +117,6 @@ def _nearest_hit_cuda(spec, r0, direction, rem):
         raise ValueError(f"spec.tri has {n_cells} rows for an n_sv of "
                          f"{spec.n_sv}")
     for name, t, dt, shape in (
-        ("r0", r0, dtype, (n, 3)),
-        ("direction", direction, dtype, (n, 3)),
-        ("rem", rem, dtype, (n,)),
         ("spec.tri", spec.tri, dtype, (n_cells, n_chunks, chunk, 12)),
         ("spec.cell_counts", spec.cell_counts, torch.int32, (n_cells,)),
         ("spec.sv_width", spec.sv_width, dtype, (3,)),
@@ -120,33 +126,123 @@ def _nearest_hit_cuda(spec, r0, direction, rem):
     if spec.tri.data_ptr() % 16:
         raise ValueError("spec.tri must be 16-byte aligned (the kernel "
                          "stages its rows with 16-byte copies)")
+    return dtype, n_cells, n_chunks * chunk, chunk
+
+
+def _lib():
+    from ._build import load
+
+    lib = load("mesh_hit").lib
+    for name in ("mesh_hit_scratch_words", "mesh_step_scratch_words"):
+        getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_longlong
+    for dtype, real in ((torch.float32, ctypes.c_float),
+                        (torch.float64, ctypes.c_double)):
+        fn = getattr(lib, _SYMBOLS[dtype])
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [real]
+                       + [ctypes.c_void_p] * 4)
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, _STEP_SYMBOLS[dtype])
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [real]
+                       + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 9)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _nearest_hit_cuda(spec, r0, direction, rem):
+    n = r0.shape[0]
+    device = r0.device
+    dtype, n_cells, k_pad, chunk = _check_spec(spec, device)
+    for name, t, shape in (("r0", r0, (n, 3)), ("direction", direction,
+                                                 (n, 3)), ("rem", rem, (n,))):
+        _check(name, t, dtype, shape, device)
     min_d = torch.empty((n,), dtype=dtype, device=device)
     normal = torch.empty((n, 3), dtype=dtype, device=device)
     if n == 0:
         return min_d, normal
-    lib = load("mesh_hit").lib
-    lib.mesh_hit_scratch_words.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.mesh_hit_scratch_words.restype = ctypes.c_longlong
+    lib = _lib()
     scratch = torch.empty((lib.mesh_hit_scratch_words(n, n_cells),),
                           dtype=torch.int32, device=device)
-    real = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
-    fn = getattr(lib, _SYMBOLS[dtype])
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [real]
-                   + [ctypes.c_void_p] * 4)
-    fn.restype = ctypes.c_int
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(
+        rc = getattr(lib, _SYMBOLS[dtype])(
             r0.data_ptr(), direction.data_ptr(), rem.data_ptr(),
             spec.tri.data_ptr(), spec.cell_counts.data_ptr(),
             spec.sv_width.data_ptr(), spec.voxel_size.data_ptr(),
-            n, *spec.n_sv, n_chunks * chunk, chunk, EDGE_TOL[dtype],
+            n, *spec.n_sv, k_pad, chunk, EDGE_TOL[dtype],
             min_d.data_ptr(), normal.data_ptr(), scratch.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"mesh_hit kernel launch failed: CUDA error {rc}")
     launch_count.add("mesh_hit")
     return min_d, normal
+
+
+def mesh_step(spec, positions, epsilon, max_iter, seed, t, ids):
+    """One classic mesh step on a halo-layout :class:`MeshSpec`, on the
+    card.
+
+    ``positions`` (3, n) in step-length units in the spec's dtype on its
+    CUDA device, ``epsilon`` a float or a one-value tensor, ``seed`` and
+    ``t`` the step's draw keys (Python ints or 0-d int32 tensors on the
+    device), ``ids`` the (n,) int32 spin ids. Returns ``(positions (3, n),
+    exc (n,) bool, crossings (n,) int32)``: the draw kernel, K2's passes
+    with the first bounce resolved, K9, the tail.
+    """
+    _check_halo(spec)
+
+    device = positions.device
+    if device.type != "cuda":
+        raise ValueError(f"the mesh step kernels take CUDA tensors, not "
+                         f"{device}")
+    dtype, n_cells, k_pad, chunk = _check_spec(spec, device)
+    n = positions.shape[1]
+    _check("positions", positions, dtype, (3, n), device)
+    _check("ids", ids, torch.int32, (n,), device)
+    perm, perm_stride = analytic_kernel.per_spin_values(
+        "perm_prob", spec.perm_prob, n, dtype, device)
+    eps, eps_stride = analytic_kernel.per_spin_values(
+        "epsilon", epsilon, n, dtype, device)
+    if perm_stride or eps_stride:
+        raise ValueError("the mesh step takes one perm_prob and one epsilon "
+                         "for every spin")
+    directions = draw_kernel.unit_directions_epoch(seed, t, 1, ids, dtype)[0]
+    r0 = positions.T.contiguous()
+    direction = directions.T.contiguous()
+    rem = torch.ones((n,), dtype=dtype, device=device)
+    s_r0 = torch.empty_like(r0)
+    s_dir = torch.empty_like(direction)
+    s_rem = torch.empty_like(rem)
+    iters = torch.empty((n,), dtype=torch.int32, device=device)
+    crossings = torch.empty((n,), dtype=torch.int32, device=device)
+    out = torch.empty((3, n), dtype=dtype, device=device)
+    exc = torch.empty((n,), dtype=torch.bool, device=device)
+    if n == 0:
+        return out, exc, crossings
+    lib = _lib()
+    scratch = torch.empty((lib.mesh_step_scratch_words(n, n_cells),),
+                          dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        (p_seed, p_t), keep = draw_kernel.scalar_ptrs(device, seed, t)
+        rc = getattr(lib, _STEP_SYMBOLS[dtype])(
+            r0.data_ptr(), direction.data_ptr(), rem.data_ptr(),
+            spec.tri.data_ptr(), spec.cell_counts.data_ptr(),
+            spec.sv_width.data_ptr(), spec.voxel_size.data_ptr(),
+            n, *spec.n_sv, k_pad, chunk, EDGE_TOL[dtype],
+            ids.data_ptr(), p_seed, p_t, perm.data_ptr(), eps.data_ptr(),
+            int(max_iter), s_r0.data_ptr(), s_dir.data_ptr(),
+            s_rem.data_ptr(), iters.data_ptr(), crossings.data_ptr(),
+            out.data_ptr(), exc.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    del keep
+    if rc != 0:
+        raise RuntimeError(f"mesh step kernels failed to launch: CUDA error "
+                           f"{rc}")
+    launch_count.add("mesh_hit")
+    launch_count.add("mesh_bounce")
+    return out, exc, crossings
 
 
 def nearest_hit_reference(spec, r0, direction, rem):

@@ -11,9 +11,17 @@ uniform)``. Positions and directions are (3, n) tensors; the draws come in
 as arguments (see ``engine/rng.py``), so the same step runs on the
 id-keyed streams or on another engine's draws.
 
-The JAX package's masked ``lax.while_loop`` bounce loops become Python
-loops over torch ops that run until no spin is still colliding; each pass
-reads one flag back from the device.
+These are the plain versions. The JAX package's masked ``lax.while_loop``
+bounce loops become Python loops over torch ops that run until no spin is
+still colliding; each pass reads one flag back from the device.
+
+:func:`step` is what the classic window (``engine/core.py``) calls: it
+draws from the id-keyed streams and, on a CUDA device, runs the step as
+kernels with no host read-back: K8 (``engine/analytic_kernel.py``) for the
+analytic substrates, the mesh step of ``engine/mesh_kernel.py`` (K2's
+passes, then K9) for the halo mesh layout. Free diffusion is the draw
+kernel and one add. The per-cell mesh layout keeps the gather query and
+its plain loop on every device, as the JAX package keeps XLA there.
 
 ``iter_exc`` semantics: a spin is flagged when it has entered the
 collision check ``max_iter`` times, and the driver excludes flagged spins
@@ -22,7 +30,7 @@ from the signal.
 
 import torch
 
-from . import config, geometry, mesh_accel, mesh_kernel
+from . import analytic_kernel, config, geometry, mesh_accel, mesh_kernel, rng
 from .specs import CylinderSpec, EllipsoidSpec, FreeSpec, MeshSpec, SphereSpec
 
 
@@ -290,3 +298,39 @@ STEP_FUNCTIONS = {
     "ellipsoid": step_ellipsoid,
     "mesh": step_mesh,
 }
+
+
+def syncs_host(kind, spec):
+    """Whether :func:`step` reads back from the device on CUDA: only the
+    per-cell mesh layout's plain loop does."""
+    return kind == "mesh" and tuple(spec.spans) != (1, 1, 1)
+
+
+def step(kind, positions, spec, epsilon, max_iter, seed_k, t, ids):
+    """One classic time step of ``kind`` with the id-keyed draws of step
+    ``t`` (``seed_k`` and ``t`` Python ints or 0-d int32 tensors on the
+    ids' device). Returns ``(positions (3, n), exc (n,), crossings (n,))``.
+
+    On CUDA tensors the analytic substrates go to K8 and the halo mesh
+    layout to the mesh step kernels. CPU tensors, free diffusion and the
+    per-cell mesh layout run :func:`plain_step`.
+    """
+    if positions.is_cuda and kind in analytic_kernel.KINDS:
+        return analytic_kernel.analytic_step(
+            kind, positions, spec, epsilon, max_iter, seed_k, t, ids)
+    if positions.is_cuda and kind == "mesh" and not syncs_host(kind, spec):
+        return mesh_kernel.mesh_step(spec, positions, epsilon, max_iter,
+                                     seed_k, t, ids)
+    return plain_step(kind, positions, spec, epsilon, max_iter, seed_k, t,
+                      ids)
+
+
+def plain_step(kind, positions, spec, epsilon, max_iter, seed_k, t, ids):
+    """:func:`step` as plain torch: ``STEP_FUNCTIONS[kind]`` fed the draws
+    of ``engine/rng.py``. The step kernels' plain version."""
+    dtype = positions.dtype
+    return STEP_FUNCTIONS[kind](
+        positions, spec, epsilon, max_iter,
+        rng.step_directions(seed_k, t, ids, dtype),
+        rng.bounce_uniforms(seed_k, t, ids, dtype),
+    )

@@ -163,28 +163,6 @@ def _count_crossings_x(points, triangles, candidates):
     return hit.sum(dim=1)
 
 
-def _ray_crossings_x(points, triangles, tri_subset=None):
-    """Number of triangles crossed by the +x ray from each point.
-
-    ``points`` is (n, 3); ``triangles`` is (m, 3, 3) (an array or a float32
-    tensor). If ``tri_subset`` is
-    given — an (n, K) int array of candidate triangle indices per point,
-    -1-padded — only those triangles are tested. Runs in float32 on CPU
-    tensors: seeding is host-side preprocessing.
-    """
-    points = np.asarray(points, dtype=np.float32)
-    if tri_subset is None:
-        tri_subset = np.broadcast_to(
-            np.arange(len(triangles))[None, :], (len(points), len(triangles))
-        )
-    counts = _count_crossings_x(
-        torch.from_numpy(points),
-        torch.as_tensor(np.asarray(triangles), dtype=torch.float32),
-        torch.as_tensor(np.asarray(tri_subset), dtype=torch.int64),
-    )
-    return counts.numpy()
-
-
 def _column_candidates(substrate, n_faces):
     """Per-(y, z)-grid-column candidate triangle lists for +x parity rays.
 
@@ -219,26 +197,38 @@ def _column_candidates(substrate, n_faces):
     return table
 
 
-def _make_intra_classifier(substrate):
+def _make_intra_classifier(substrate, device, budget=None):
     """Build ``classify(points) -> bool (n,)``: True where the point lies
     inside the closed surface (odd +x-ray crossing parity), points in
     metres. For non-periodic substrates the 12 voxel-wall triangles
     appended at construction are excluded from the parity test.
+
+    The triangles, the candidate columns and the crossing counts live on
+    ``device`` (the simulation's; the CPU tests pass "cpu"), in float32;
+    the host only plans the batches of at most ``budget`` (point, triangle)
+    pairs (None: sized for the device's memory).
     """
+    device = torch.device(device)
     vertices = substrate.vertices
     faces = substrate.faces
     if not substrate.periodic:
         vertices = vertices[:-8]
         faces = faces[:-12]
-    triangles = torch.as_tensor(vertices[faces], dtype=torch.float32)
+    triangles = torch.as_tensor(vertices[faces], dtype=torch.float32).to(
+        device)
     columns = _column_candidates(substrate, len(faces))
     per_column = (columns >= 0).sum(axis=1)
+    columns = torch.as_tensor(columns).to(device)
     n_sv = np.asarray(substrate.n_sv).astype(int)
     voxel_size = np.asarray(substrate.voxel_size)
     sv_width = voxel_size / n_sv
-    # (point, triangle) pairs per batch: eager torch materialises the
-    # (points, K, 3, 3) candidate gather.
-    budget = int(1e6)
+    if budget is None:
+        # Eager torch materialises the (points, K, 3, 3) candidate gather
+        # and ~10 temporaries of (points, K) floats: on a card, a quarter
+        # of its free memory at 256 bytes a pair.
+        budget = int(1e6)
+        if device.type == "cuda":
+            budget = max(budget, torch.cuda.mem_get_info(device)[0] // 1024)
 
     def classify(p):
         # Points go in batches of similar candidate counts, each batch
@@ -252,23 +242,27 @@ def _make_intra_classifier(substrate):
         col = cy * n_sv[2] + cz
         order = np.argsort(per_column[col], kind="stable")
         k_sorted = per_column[col[order]]
-        inside = np.empty(len(p), dtype=bool)
+        points = torch.as_tensor(p.astype(np.float32)).to(device)
+        col_t = torch.as_tensor(col).to(device)
+        order_t = torch.as_tensor(order).to(device)
+        inside = torch.empty(len(p), dtype=torch.bool, device=device)
         s = 0
         while s < len(p):
             e = min(len(p), s + max(1, budget // max(k_sorted[s], 1)))
             while e - s > 1 and (e - s) * k_sorted[e - 1] > budget:
                 e = s + max(1, budget // max(k_sorted[e - 1], 1))
-            idx = order[s:e]
+            idx = order_t[s:e]
             k = max(int(k_sorted[e - 1]), 1)
-            inside[idx] = (_ray_crossings_x(
-                p[idx], triangles, columns[col[idx], :k]) % 2).astype(bool)
+            crossings = _count_crossings_x(points[idx], triangles,
+                                           columns[col_t[idx], :k])
+            inside[idx] = (crossings % 2).bool()
             s = e
-        return inside
+        return inside.cpu().numpy()
 
     return classify
 
 
-def _fill_mesh(n_points, substrate, intra, seed):
+def _fill_mesh(n_points, substrate, intra, seed, device):
     """Sample points uniformly inside ("intra") or outside ("extra") the
     closed surface defined by a mesh substrate's triangles.
 
@@ -282,12 +276,14 @@ def _fill_mesh(n_points, substrate, intra, seed):
     intra : bool
         True to sample inside the surface, False outside.
     seed : int
+    device : str or torch.device
+        Where the proposals are classified (``_make_intra_classifier``).
 
     Returns
     -------
     numpy.ndarray of shape (n_points, 3)
     """
-    classify = _make_intra_classifier(substrate)
+    classify = _make_intra_classifier(substrate, device)
     rng = np.random.RandomState(seed)
     voxel_size = np.asarray(substrate.voxel_size)
 
@@ -365,7 +361,7 @@ def _mesh_positions(substrate, n_walkers, seed, scale, quiet, dtype, device):
         if not quiet:
             print("Calculating initial positions")
         pts = _fill_mesh(
-            n_walkers, substrate, substrate.init_pos == "intra", seed
+            n_walkers, substrate, substrate.init_pos == "intra", seed, device
         )
         if not quiet:
             print("Finished calculating initial positions")
@@ -535,9 +531,10 @@ def _start_parity(substrate, positions, step_l):
     """(n,) bool starting compartment of each spin (True = intra).
 
     Meshes seeded "intra" or "extra" start all in or all out; explicit and
-    "uniform" positions are classified by ray-crossing parity on the host
-    (the mesh frame is the lab frame). Analytic compartments confine their
-    spins (intra); free diffusion has no membrane (extra).
+    "uniform" positions are classified by ray-crossing parity on the
+    positions' device (the mesh frame is the lab frame). Analytic
+    compartments confine their spins (intra); free diffusion has no
+    membrane (extra).
     """
     n = positions.shape[1]
     if substrate.type != "mesh":
@@ -549,7 +546,7 @@ def _start_parity(substrate, positions, step_l):
         points = np.asarray(init, dtype=float)
     else:
         points = positions.cpu().numpy().astype(float).T * step_l
-    return _make_intra_classifier(substrate)(points)
+    return _make_intra_classifier(substrate, positions.device)(points)
 
 
 @dataclasses.dataclass

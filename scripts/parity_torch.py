@@ -19,8 +19,8 @@ and, per (periodic, padding) pair of the mesh matrix, how far the signals
 of its three ``n_sv`` runs lie apart (the fused pack does not depend on
 ``n_sv``, so they should be equal bit for bit).
 
-On one H100 the whole matrix takes about 16 minutes (931-941 s), most of
-it the host packs and seeding of the three neuron runs. There is no fallback: with no
+On one H100 the whole matrix takes about 9 minutes (553 s), most of it
+the host packs of the three neuron runs. There is no fallback: with no
 GPU the script fails unless ``--device cpu`` is given, which runs the plain
 versions (the CPU tests drive the groups that way at a tiny size, where the
 values need not meet the thresholds).
@@ -123,7 +123,7 @@ def _watch():
 
     def classic_note(spec):
         info["classic_layout"] = (
-            "halo (mesh_hit kernel)" if tuple(spec.spans) == (1, 1, 1)
+            "halo (mesh step kernels)" if tuple(spec.spans) == (1, 1, 1)
             else "per-cell (gather query)")
 
     wrapped = {
@@ -141,7 +141,7 @@ def _watch():
         for k in names:
             setattr(simulations, k, orig[k])
         info["launches"] = {k: launch_count.counts[k] - before[k]
-                            for k in ("fused_epoch", "mesh_hit")}
+                            for k in launch_count.KERNELS}
         fused = info.pop("fused_table", None)
         classic = "classic_layout" in info
         if fused is None:

@@ -8,7 +8,8 @@ spins x 150 steps x 32 measurements) through
 under ``torch.profiler``; then the same through the fused engine (two
 unprofiled runs, one profiled). Prints the walls, the kernel launches,
 each kernel's summed device time (the nearest-hit query's four kernels
-together), the profiler's table and the operators with the most device
+together, then the mesh step's later bounces and tail), the profiler's
+table and the operators with the most device
 time. Needs one CUDA GPU; run from the repository root:
 
     python3 scripts/torch_profile_classic.py
@@ -31,8 +32,10 @@ from disimpy_tpu_torch.engine import (  # noqa: E402
     config, launch_count)
 
 
-# The kernels of one nearest-hit query (csrc/mesh_hit.cu).
+# The kernels of one nearest-hit query (csrc/mesh_hit.cu), and those of a
+# classic mesh step's later bounces and tail.
 MESH_HIT_KERNELS = ("cell_pass", "scan_pass", "scatter_pass", "hit_pass")
+MESH_BOUNCE_KERNELS = ("bounce_pass", "finish_pass")
 
 
 def device_ms(event):
@@ -72,8 +75,10 @@ def main():
     finally:
         config.use_fused = None
     print(f"profiled wall {wall} s, {launch_count.counts['mesh_hit']} "
-          "mesh_hit launches")
+          f"mesh_hit and {launch_count.counts['mesh_bounce']} mesh_bounce "
+          "launches")
     report(prof.key_averages(), "mesh_hit", MESH_HIT_KERNELS)
+    report(prof.key_averages(), "mesh_bounce", MESH_BOUNCE_KERNELS)
 
     # The same workload through the fused engine (the default path).
     walls = [run(seed) for seed in (1, 2)]

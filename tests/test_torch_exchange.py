@@ -125,7 +125,7 @@ def test_tracked_parity_matches_final_geometry(engine):
     # transits.
     voxel = np.asarray(substrate.voxel_size)
     wrapped = pos - np.floor(pos / voxel) * voxel
-    inside = simulations._make_intra_classifier(substrate)(wrapped)
+    inside = simulations._make_intra_classifier(substrate, "cpu")(wrapped)
     expected = (stats["crossings"] % 2) == 0  # started intra
     assert stats["crossings"].max() > 0
     # Epsilon surface offsets can leave a spin ambiguously close to the
@@ -141,7 +141,7 @@ def test_uniform_seeding_parity_from_geometry(engine):
     _, pos, stats = _run(n_s, D, np.zeros((1, n_t, 3)), 2e-4, substrate,
                          seed=4, final_pos=True, exchange_stats=True)
     voxel = np.asarray(substrate.voxel_size)
-    inside = simulations._make_intra_classifier(substrate)(
+    inside = simulations._make_intra_classifier(substrate, "cpu")(
         pos - np.floor(pos / voxel) * voxel)
     assert 0 < inside.sum() < n_s
     npt.assert_array_equal(stats["crossings"], 0)
@@ -270,7 +270,7 @@ def test_fused_tracking_matches_jax(oracles_dir, jax_runs):
     kw = dict(n_sv=np.array([10, 10, 10]), quiet=True)
     start = simulations._fill_mesh(
         n_s, substrates.mesh(mesh["vertices"], mesh["faces"], True, **kw),
-        True, 5)
+        True, 5, "cpu")
     sub = substrates.mesh(mesh["vertices"], mesh["faces"], True,
                           init_pos=start, perm_prob=0.5, **kw)
     bs = np.linspace(1, 3e9, 4)

@@ -53,7 +53,7 @@ def window(oracles_dir, tmp_path_factory):
     sub = substrates.mesh(mesh["vertices"], mesh["faces"], True,
                           init_pos="intra", n_sv=np.array([10, 10, 10]),
                           quiet=True)
-    start = simulations._fill_mesh(STORED_SPINS, sub, True, 5)[:N_SPINS]
+    start = simulations._fill_mesh(STORED_SPINS, sub, True, 5, "cpu")[:N_SPINS]
     spec = fused.pack_fused(
         sub, 1 / STEP_L, n_hint=float(STORED_SPINS),
         cache_path=str(tmp_path_factory.mktemp("pack") / "cyl.pkl"))
@@ -228,8 +228,8 @@ def test_captured_launches_count_once_per_replay(monkeypatch):
     for _ in range(3):
         launch_count.replayed(tally)
     launch_count.add("mesh_hit")
-    assert launch_count.counts == {"fused_epoch": 3, "krng_draw": 3,
-                                   "mesh_hit": 1}
+    assert launch_count.counts == dict.fromkeys(launch_count.KERNELS, 0) | {
+        "fused_epoch": 3, "krng_draw": 3, "mesh_hit": 1}
     launch_count.reset()
     assert not any(launch_count.counts.values())
 

@@ -167,7 +167,7 @@ def _gradient():
 @pytest.fixture(scope="module")
 def intra_points(oracles_dir):
     sub = _closed_cylinder(substrates, oracles_dir, init_pos="intra")
-    return simulations._fill_mesh(N_SPINS, sub, True, 5)
+    return simulations._fill_mesh(N_SPINS, sub, True, 5, "cpu")
 
 
 @pytest.mark.parametrize("perm", [0.0, 0.5])

@@ -87,7 +87,7 @@ def test_nonperiodic_pack_equals_jax(packs):
 
 def test_nonperiodic_intra_starts_equal_jax(packs, oracle):
     _, _, sub = packs
-    starts = simulations._fill_mesh(NP_SPINS, sub, True, NP_SEED)
+    starts = simulations._fill_mesh(NP_SPINS, sub, True, NP_SEED, "cpu")
     differ = ~np.all(starts == oracle["nonperiodic_starts"], axis=1)
     assert differ.sum() <= 1e-4 * NP_SPINS, differ.sum()
 
@@ -125,7 +125,8 @@ def test_neuron_classifier_equals_jax(oracles_dir, oracle):
         mesh = pickle.load(f)
     sub = substrates.mesh(mesh["vertices"], mesh["faces"], False,
                           n_sv=np.array([20, 20, 20]), quiet=True)
-    inside = simulations._make_intra_classifier(sub)(oracle["neuron_points"])
+    inside = simulations._make_intra_classifier(sub, "cpu")(
+        oracle["neuron_points"])
     npt.assert_array_equal(inside, oracle["neuron_inside"])
     assert 0 < inside.sum() < len(inside)
 

@@ -56,7 +56,7 @@ def intra_points(oracles_dir):
     vertices, faces = _cylinder_mesh(oracles_dir)
     sub = substrates.mesh(vertices, faces, True, init_pos="intra",
                           n_sv=np.array([10, 10, 10]), quiet=True)
-    return simulations._fill_mesh(N_SPINS, sub, True, 5)
+    return simulations._fill_mesh(N_SPINS, sub, True, 5, "cpu")
 
 
 @pytest.fixture(scope="module")
@@ -94,7 +94,7 @@ def test_fill_mesh_equals_jax(oracles_dir, intra_points):
         sub_t = substrates.mesh(vertices, faces, periodic, **kw)
         for intra in (True, False):
             npt.assert_array_equal(
-                simulations._fill_mesh(300, sub_t, intra, 9),
+                simulations._fill_mesh(300, sub_t, intra, 9, "cpu"),
                 jsim._fill_mesh(300, sub_j, intra, 9),
             )
     sub_j = jsub.mesh(vertices, faces, True, n_sv=np.array([10, 10, 10]),
@@ -173,7 +173,7 @@ def test_uniform_mesh_seeding(oracles_dir):
     start = simulations._uniform_positions(
         n, np.asarray(sub.voxel_size) / step_l, SEED, "cpu"
     ).numpy().T.astype(float) * step_l
-    classify = simulations._make_intra_classifier(sub)
+    classify = simulations._make_intra_classifier(sub, "cpu")
     inside = classify(start)
     assert 0 < inside.sum() < n
     npt.assert_array_equal(
