@@ -142,27 +142,36 @@ Phases, one line each (any failure raises, so the exit code is non-zero):
    saw, which must equal the launches the wrappers counted.
 
 19. the classic engine on the card: the step kernels against their plain
-   versions on one step at 524,288 spins, the same positions and draws:
-   K8 (``csrc/analytic_step.cu``) on the sphere, cylinder and ellipsoid x
-   float32 / float64 x perm 0 / 0.5 x one radius / a radius per spin, and
-   the mesh step (the draw kernel, K2's passes with the first bounce
-   resolved, K9 in ``csrc/mesh_hit.cu``) on the bundle's halo pack in both
-   types and perms: K8 against its plain version, and the mesh step
-   against the plain loop on K2's query, positions, exc and crossings bit
-   for bit on every spin; the mesh step (and its first pass alone) against
-   the plain loop on the gather query, at most 0.5% of the spins more than
-   1e-5 (float32) or 1e-12 (float64) step lengths apart, counted; each
-   step's time, its collision checks, K2's and K9's shares and bounds; then
-   classic windows graphed (``config.classic_cuda_graph``) against eager,
-   bit for bit: the bundle tracked and with trajectories, a sphere sweep;
-   the classic bundle (float32 and float64, 524,288 x 150 x 32) and the
-   four analytic MISST runs (1e5 x 1000 x 100 b) through ``simulation()``
+   versions on one step, the same positions and draws: K8
+   (``csrc/analytic_step.cu``) at 524,288 spins on the sphere, cylinder
+   and ellipsoid x float32 / float64 x perm 0 / 0.5 x one radius / a
+   radius per spin, and at the analytic MISST runs' shape (1e5 spins in a
+   5 um sphere and cylinder); the mesh step (the draw kernel, K2's passes
+   with the first bounce resolved, K9 in ``csrc/mesh_hit.cu``: the listed
+   spins sorted by cell, their second check on staged rows, the
+   warp-per-spin remainder, the tail) at 524,288 spins on the bundle's
+   halo pack in both types and perms, at a step 10 times longer (most
+   spins reach the remainder) and at a budget of 3 checks (some spins end
+   over it): K8 against its plain version, and the mesh step against the
+   plain loop on K2's query, positions, exc and crossings bit for bit on
+   every spin; the mesh step (and its first pass alone) against the plain
+   loop on the gather query, at most 0.5% of the spins more than 1e-5
+   (float32) or 1e-12 (float64) step lengths apart, counted; each step's
+   time beside the earlier kernels', its collision checks, K2's and K9's
+   parts and bounds (K9's counted from the plain loop's later queries);
+   then classic
+   windows graphed (``config.classic_cuda_graph``) against eager, bit for
+   bit: the bundle tracked and with trajectories, a sphere sweep; the
+   classic bundle (float32 and float64, 524,288 x 150 x 32) and the four
+   analytic MISST runs (1e5 x 1000 x 100 b) through ``simulation()``
    graphed and eager: equal results, the first call, the median of five
    runs and the launches per run, one torch.profiler run of the float32
-   bundle each way (busy share; the kernels seen equal the launches
-   counted); and the start classifier on the card against the CPU's on
-   524,288 points uniform in the bundle's voxel and in the neuron's (at
-   most 1e-5 of them may differ).
+   bundle and of the 30 ms sphere each way (busy share; the kernels seen
+   equal the launches counted; the step kernels' and the phase product's
+   device time per launch; the operators that launched the eager run's
+   busiest kernels); and the start classifier on the card against the
+   CPU's on 524,288 points uniform in the bundle's voxel and in the
+   neuron's (at most 1e-5 of them may differ).
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the rest
@@ -2111,11 +2120,15 @@ def _flat(out):
     return flat
 
 
-def _busy_share(run):
+def _busy_share(run, origins=False):
     """One profiled call of ``run``: (device busy ms, wall ms, CUDA kernels
     and copies seen, the four names with the most device time as (name,
-    ms, count), and {name: count} of every device event); busy time sums
-    each device event's own time (one stream, so they do not overlap)."""
+    ms, count), {name: count} of every device event, and {name: (ms,
+    count, origin)} of every device event); busy time sums each device
+    event's own time (one stream, so they do not overlap). With
+    ``origins`` (an eager run: a graph replay launches from no operator)
+    each kernel's origin is the chain of operators that most often
+    launched it, innermost first; otherwise None."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2125,15 +2138,29 @@ def _busy_share(run):
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    events = prof.events()
+    device = [e for e in events if e.device_type.name == "CUDA"]
     busy = sum(e.self_device_time_total for e in device) / 1e3
     by_name = {}
     for e in device:
         ms, count = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.self_device_time_total / 1e3, count + 1)
+    chains = collections.defaultdict(collections.Counter)
+    if origins:
+        for e in events:
+            if e.device_type.name != "CPU" or not e.kernels:
+                continue
+            chain, p = [], e
+            while p is not None and len(chain) < 5:
+                chain.append(p.name)
+                p = p.cpu_parent
+            for k in e.kernels:
+                chains[k.name][" < ".join(chain)] += 1
+    detail = {k: (ms, c, chains[k].most_common(1)[0][0] if chains[k]
+                  else None) for k, (ms, c) in by_name.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:4]
     return (busy, wall, len(device), [(k[:60], ms, c) for k, (ms, c) in top],
-            {k: c for k, (ms, c) in by_name.items()})
+            {k: c for k, (ms, c) in by_name.items()}, detail)
 
 
 def _profiled_launches(names):
@@ -2184,7 +2211,8 @@ def _graph_vs_eager(label, sub, step_l, gradient, dt, smi):
             k1 = launch_count.counts["fused_epoch"]
             k7 = launch_count.counts["krng_draw"]
             launch_count.reset()
-            busy, wall_ms, events, top, names = _busy_share(lambda: sim(2))
+            busy, wall_ms, events, top, names, _ = _busy_share(
+                lambda: sim(2))
             out[graphed] = dict(
                 first=first, walls=walls, median=float(np.median(walls)),
                 res=res, k1=k1, k7=k7, counted=dict(launch_count.counts),
@@ -2317,12 +2345,13 @@ def _kernel_device_ms(fn, names, reps=5):
             / 1e3 / reps for k in names}
 
 
-def _checks_by_k(step_at):
+def _checks_by_k(step_at, max_iter=1000):
     """[#spins with iters >= k for k = 1, 2, ...] of one step, read from
     the kernel's exc flags at max_iter = k (the walk up to check k does
-    not depend on max_iter). Their sum is the step's collision checks."""
+    not depend on max_iter), up to ``max_iter``. Their sum is the step's
+    collision checks."""
     counts = []
-    for k in range(1, 65):
+    for k in range(1, min(64, max_iter) + 1):
         c = int(step_at(k)[1].sum())
         if c == 0:
             break
@@ -2330,34 +2359,82 @@ def _checks_by_k(step_at):
     return counts
 
 
-def _step_check(kind, label, spec, pos, eps):
-    """One classic step at the main path's shape, the step kernels against
-    the plain version on the same positions and draws. K8: positions, exc
-    and crossings per spin bit for bit. The mesh step: bit for bit with the
-    plain loop on K2's query, and against the plain loop on the gather
-    query at most MAX_STEP_APART of the spins more than GATHER_APART[dtype]
-    step lengths apart (or with other exc or crossings); the same for the
-    first pass alone (max_iter 1: K2's resolve epilogue and the tail).
-    Returns the record (times, bounds, counts)."""
+def _later_queries(run):
+    """The halo cells of the spins each query of the plain mesh loop
+    serves, in call order, while ``run()`` runs it: the first entry is the
+    first pass, the others the compacted later passes
+    (``mesh_kernel.halo_cells`` of the query's inputs)."""
+    from disimpy_tpu_torch.engine import mesh_kernel, stepping
+
+    make = stepping._make_mesh_query
+    calls = []
+
+    def recording(spec, dtype, device):
+        query = make(spec, dtype, device)
+
+        def recorded(r0, direction, rem):
+            cell, _ = mesh_kernel.halo_cells(spec, r0, direction, rem)
+            calls.append(cell)
+            return query(r0, direction, rem)
+        return recorded
+
+    stepping._make_mesh_query = recording
+    try:
+        run()
+    finally:
+        stepping._make_mesh_query = make
+    return calls
+
+
+# K9's and K8's times per launch before their redesign (the kernels of
+# commit 9f0b714, as PERF.md records them; NVIDIA H100 80GB HBM3, 700 W),
+# printed beside this run's.
+K9_BEFORE_MS = {"bundle float32 perm 0.0": 0.1603,
+                "bundle float32 perm 0.5": 0.1335,
+                "bundle float64 perm 0.0": 0.2746,
+                "bundle float64 perm 0.5": 0.2246}
+K8_BEFORE_MS = {("sphere", "float32"): "0.0171-0.0179",
+                ("cylinder", "float32"): "0.0150-0.0172",
+                ("ellipsoid", "float32"): "0.0230-0.0253",
+                ("sphere", "float64"): "0.0258-0.0285",
+                ("cylinder", "float64"): "0.0233-0.0260",
+                ("ellipsoid", "float64"): "0.0334-0.0340"}
+# The kernels of K9 (csrc/mesh_hit.cu): the worklist's sort by cell, the
+# staged second check, the warp-per-spin remainder, the tail.
+K9_KERNELS = ("relist_cells", "relist_scan", "relist_scatter", "later_pass",
+              "bounce_pass", "finish_pass")
+
+
+def _step_check(kind, label, spec, pos, eps, max_iter=1000,
+                min_exc=0):
+    """One classic step, the step kernels against the plain version on the
+    same positions and draws. K8: positions, exc and crossings per spin bit
+    for bit. The mesh step: bit for bit with the plain loop on K2's query,
+    and against the plain loop on the gather query at most MAX_STEP_APART
+    of the spins more than GATHER_APART[dtype] step lengths apart (or with
+    other exc or crossings); the same for the first pass alone (max_iter 1:
+    K2's resolve epilogue and the tail). At least ``min_exc`` spins must
+    end over the budget. Returns the record (times, bounds, counts)."""
     from disimpy_tpu_torch.engine import (analytic_kernel, config,
                                           draw_kernel, mesh_kernel, stepping)
 
     n = pos.shape[1]
     dtype = pos.dtype
+    name = str(dtype)[6:]
     size = pos.element_size()
     ids = torch.arange(n, dtype=torch.int32, device="cuda")
     seed, t = 4321, 17
     scal = draw_kernel.device_scalars((seed, t), "cuda")
     if kind == "mesh":
-        def kernel(max_iter=1000):
+        def kernel(max_iter=max_iter):
             return mesh_kernel.mesh_step(spec, pos, eps, max_iter, scal[0],
                                          scal[1], ids)
     else:
-        def kernel(max_iter=1000):
+        def kernel(max_iter=max_iter):
             return analytic_kernel.analytic_step(
                 kind, pos, spec, eps, max_iter, scal[0], scal[1], ids)
 
-    def plain(max_iter=1000, query=None):
+    def plain(max_iter=max_iter, query=None):
         """The plain version; a mesh on K2's query (the one
         config.mesh_query_backend picks on the card), or on ``query``."""
         backend = config.mesh_query_backend
@@ -2377,6 +2454,7 @@ def _step_check(kind, label, spec, pos, eps):
         return int((~same).sum()), int(apart.sum()), err
 
     out = kernel()
+    exc = int(out[1].sum())
     if kind == "mesh":
         limit = GATHER_APART[dtype]
         differ, apart, err = compare(out, plain(query="gather"), limit)
@@ -2401,22 +2479,24 @@ def _step_check(kind, label, spec, pos, eps):
         result = (f"{differ} spins not bit for bit equal, max |diff| "
                   f"{err:.3g}")
         plain_ms, _ = _cuda_ms(plain, 3)
-    by_k = _checks_by_k(kernel)
+    ok = ok and exc >= min_exc
+    by_k = _checks_by_k(kernel, max_iter)
     checks = sum(by_k)
     hits = max(checks - n, 0)
     ms = _graph_ms(kernel, 20)
     record = dict(kind=kind, label=label, n=n, differ=differ, apart=apart,
                   max_abs_err=err, ms=ms, plain_ms=plain_ms, checks=checks,
-                  crossings=int(out[2].sum()))
+                  crossings=int(out[2].sum()), exc=exc, by_k=by_k)
     if kind == "mesh":
         r0 = pos.T.contiguous()
         cell, _ = mesh_kernel.halo_cells(spec, r0, r0, torch.zeros(
             n, dtype=dtype, device="cuda"))
         per_row = float(spec.cell_counts[cell].double().mean())
         listed = by_k[1] if len(by_k) > 1 else 0
+        rest = by_k[2] if len(by_k) > 2 else 0
         times = _kernel_device_ms(lambda: kernel(), (
-            "bounce_pass", "finish_pass", "hit_pass", "cell_pass",
-            "scan_pass", "scatter_pass", "directions_kernel"))
+            "hit_pass", "cell_pass", "scan_pass", "scatter_pass",
+            "directions_kernel") + K9_KERNELS)
         # K2 on the main path (the first pass, its resolve epilogue
         # included): each spin's r0, direction, rem and id read once, its
         # resolved state, iters and crossings written once, the listed
@@ -2428,17 +2508,30 @@ def _step_check(kind, label, spec, pos, eps):
                     + listed * 4)
         k2_flops = int(spec.cell_counts[cell].sum()) * (
             mesh_kernel.FLOPS_PER_RECORD)
-        k2_bound_ms, k2_bound_by = bound(k2_bytes, k2_flops, str(dtype)[6:])
-        # K9 (bounce_pass and the tail): the listed spins' state read and
-        # written, the tail's reads and writes; the later passes' record
-        # tests, at the first pass's mean row length.
-        n_bytes = listed * (2 * 8 * size + 4) + n * (8 * size + 9)
-        flops = hits * per_row * mesh_kernel.FLOPS_PER_RECORD
+        k2_bound_ms, k2_bound_by = bound(k2_bytes, k2_flops, name)
+        # K9 (every check after the first, and the tail), counted from the
+        # queries the plain loop makes on these inputs: one test per record
+        # of the row of each later check; each row a later check reads,
+        # read once; the state of each spin checked again (r0, direction,
+        # rem, iters, crossings, id) read once and written once per pass
+        # it is listed for; the tail's reads (state) and writes (positions,
+        # exc) of every spin.
+        later = _later_queries(lambda: plain())[1:]
+        tests = sum(int(spec.cell_counts[c].sum()) for c in later)
+        rows = (torch.unique(torch.cat(later)) if later else
+                torch.zeros(0, dtype=torch.long, device="cuda"))
+        n_bytes = (int(spec.cell_counts[rows].sum()) * 12 * size
+                   + (listed + rest) * (14 * size + 20)
+                   + n * (10 * size + 5))
+        flops = tests * mesh_kernel.FLOPS_PER_RECORD
+        k9_ms = sum(times[k] for k in K9_KERNELS)
         record.update(
-            k9_ms=times["bounce_pass"] + times["finish_pass"],
+            k9_ms=k9_ms, later_ms=sum(times[k] for k in K9_KERNELS[:4]),
+            rest_ms=times["bounce_pass"], tail_ms=times["finish_pass"],
             k2_ms=sum(times[k] for k in ("hit_pass", "cell_pass",
                                          "scan_pass", "scatter_pass")),
-            k7_ms=times["directions_kernel"], listed=listed,
+            k7_ms=times["directions_kernel"], listed=listed, rest=rest,
+            later_tests=tests, later_rows=int(rows.numel()),
             records_per_row=per_row, first_err=first_err,
             first_plain_ms=first_plain_ms, k2_bound_ms=k2_bound_ms,
             k2_bound_by=k2_bound_by)
@@ -2446,25 +2539,39 @@ def _step_check(kind, label, spec, pos, eps):
         per_spin = getattr(spec, "radius", torch.zeros(())).numel() == n
         n_bytes = n * (6 * size + 9 + (size if per_spin else 0))
         flops = checks * K8_FLOPS_PER_CHECK + n * K8_DRAW_FLOPS
-    bound_ms, bound_by = bound(n_bytes, flops, str(dtype)[6:])
+    bound_ms, bound_by = bound(n_bytes, flops, name)
     if kind != "mesh":
         int_ms, _ = bound(0, (n + hits) * K7_INT_OPS, "int32")
         if int_ms > bound_ms:
             bound_ms, bound_by = int_ms, "operations"
     record.update(bound_ms=bound_ms, bound_by=bound_by)
+    if kind == "mesh":
+        detail = (
+            f" = K7 {record['k7_ms']:.4f} + K2 {record['k2_ms']:.4f} + K9 "
+            f"{record['k9_ms']:.4f} ms (K9 before its redesign: "
+            f"{K9_BEFORE_MS.get(label, 'not measured')}); K9 = sort and "
+            f"staged second check {record['later_ms']:.4f} "
+            f"+ remainder {record['rest_ms']:.4f} + tail "
+            f"{record['tail_ms']:.4f} ms; {listed} spins listed after the "
+            f"first pass, {rest} for the remainder, checks by k {by_k}, "
+            f"{exc} over the budget of {max_iter}; {per_row:.1f} records per "
+            f"row; the later checks test {tests} records on "
+            f"{record['later_rows']} rows; K2 bound {k2_bound_ms:.4f} ms "
+            f"({k2_bound_by}), plain first pass {first_plain_ms:.3f} ms; K9")
+    else:
+        before = (K8_BEFORE_MS[kind, name] + " ms" if n == 524288
+                  else "not measured at this shape")
+        detail = f" (before the redesign: {before}); {exc} over the budget"
     say(f"step kernels vs plain, {label}: {n} spins, {checks / n:.3f} "
         f"collision checks per spin, {record['crossings']} crossings; "
-        f"{result}; step {ms:.4f} ms (plain {plain_ms:.3f} ms)"
-        + (f" = K7 {record['k7_ms']:.4f} + K2 {record['k2_ms']:.4f} + K9 "
-           f"{record['k9_ms']:.4f} ms ({record['listed']} spins listed for "
-           f"K9, {record['records_per_row']:.1f} records per row); K2 bound "
-           f"{k2_bound_ms:.4f} ms ({k2_bound_by}), plain first pass "
-           f"{first_plain_ms:.3f} ms; K9"
-           if kind == "mesh" else "")
+        f"{result}; step {ms:.4f} ms (plain {plain_ms:.3f} ms)" + detail
         + f" bound {bound_ms:.4f} ms ({bound_by})")
     if not ok:
         raise AssertionError(f"step kernels ({label}) disagree with the "
-                             "plain version")
+                             "plain version" + (
+                                 "" if exc >= min_exc else
+                                 f", or {exc} spins over the budget is "
+                                 f"fewer than {min_exc}"))
     return record
 
 
@@ -2511,6 +2618,36 @@ def _analytic_cases(n):
     return cases
 
 
+def _misst_cases():
+    """(kind, label, spec, positions, epsilon) for K8 at the shape of the
+    analytic MISST runs (phase 8): 1e5 spins uniform in a ball inside a
+    sphere and a cylinder of radius 5 um, float32, perm 0, at the step
+    length of the 30 ms protocol, with the epsilon ``simulation()`` takes
+    there."""
+    from disimpy_tpu_torch import simulations
+    from disimpy_tpu_torch.engine import specs
+
+    n = 100000
+    _, dt = _misst_gradient(30, 1000)
+    scale = 1.0 / float(np.sqrt(6 * DIFFUSIVITY * dt))
+    r = 5e-6 * scale
+    g = torch.Generator(device="cuda").manual_seed(13)
+    ball = torch.randn((3, n), generator=g, device="cuda")
+    ball = ball / ball.norm(dim=0) * torch.rand(
+        n, generator=g, device="cuda") ** (1 / 3)
+    radius = torch.tensor(r, device="cuda")
+    perm = torch.tensor(0.0, device="cuda")
+    cases = []
+    for kind, spec_cls in (("sphere", specs.SphereSpec),
+                           ("cylinder", specs.CylinderSpec)):
+        eps = simulations._effective_epsilon(1e-13, scale, r, 1000,
+                                             torch.float32, kind == "sphere")
+        cases.append((kind, f"{kind} float32 MISST shape ({n} spins, r = "
+                      f"{r:.3f} steps)", spec_cls(radius, perm),
+                      (ball * r).contiguous(), eps))
+    return cases
+
+
 def _classify_check(label, sub, n, step_l=None):
     """Start classification on the card against the CPU path on n points
     uniform in the substrate's voxel: at most MAX_CLASSIFY_DIFFER of them
@@ -2538,8 +2675,16 @@ def _classify_check(label, sub, n, step_l=None):
 
 
 CLASSIC_KERNELS = {"analytic_step": "analytic_step_kernel",
-                   "mesh_hit": "hit_pass", "mesh_bounce": "bounce_pass",
+                   "mesh_hit": "hit_pass", "mesh_later": "later_pass",
+                   "mesh_bounce": "bounce_pass",
                    "krng_draw": "directions_kernel"}
+
+
+def _device_ms(detail, part):
+    """(ms, count) summed over the profiled device events whose names
+    contain ``part`` (``_busy_share``'s last record)."""
+    hits = [(ms, c) for name, (ms, c, _) in detail.items() if part in name]
+    return sum(ms for ms, _ in hits), sum(c for _, c in hits)
 
 
 def _classic_graph_vs_eager(label, sim, profiled=False):
@@ -2573,13 +2718,14 @@ def _classic_graph_vs_eager(label, sim, profiled=False):
                 walls)), res=res, counts=dict(launch_count.counts))
             if profiled:
                 launch_count.reset()
-                busy, wall_ms, events, top, names = _busy_share(
-                    lambda: sim(2))
+                busy, wall_ms, events, top, names, detail = _busy_share(
+                    lambda: sim(2), origins=not graphed)
                 run.update(busy=busy / wall_ms, events=events, top=top,
                            seen={k: sum(c for nm, c in names.items()
                                         if v in nm)
                                  for k, v in CLASSIC_KERNELS.items()},
-                           counted=dict(launch_count.counts))
+                           counted=dict(launch_count.counts),
+                           busy_ms=busy, wall_ms=wall_ms, detail=detail)
             out[graphed] = run
     finally:
         config.classic_cuda_graph = True
@@ -2606,15 +2752,35 @@ def _classic_graph_vs_eager(label, sim, profiled=False):
     if g["counts"] != e["counts"]:
         raise AssertionError(f"classic graph vs eager ({label}): launch "
                              "counts differ")
+    profile = {}
     if profiled:
         for r in (g, e):
             if r["seen"] != {k: r["counted"][k] for k in r["seen"]}:
                 raise AssertionError(
                     f"classic graph vs eager ({label}): counted "
                     f"{r['counted']}, the profiler saw {r['seen']}")
+        # Per kernel, from the graphed run: the step kernels' and the
+        # phase product's device time per launch; from the eager run, the
+        # operators that launched the kernels with the most device time.
+        parts = {"K8": "analytic_step_kernel", "K2": "hit_pass",
+                 "K9 staged": "later_pass", "K9 remainder": "bounce_pass",
+                 "phase product": "gemm"}
+        for key, part in parts.items():
+            ms, c = _device_ms(g["detail"], part)
+            if c:
+                profile[key] = (ms, c)
+        top = sorted(e["detail"].items(), key=lambda kv: -kv[1][0])[:6]
+        say(f"profile, {label}: graphed run busy {g['busy_ms']:.2f} of "
+            f"{g['wall_ms']:.2f} ms; per launch "
+            + ", ".join(f"{k} {ms / c:.4f} ms x {c}"
+                        for k, (ms, c) in profile.items())
+            + "; eager run's kernels by device time: "
+            + "; ".join(f"{nm[:150]} {ms:.2f} ms x {c} (from {origin})"
+                        for nm, (ms, c, origin) in top))
     return dict(graph=g["median"], eager=e["median"], walls=(g["walls"],
                 e["walls"]), first=(g["first"], e["first"]),
-                launches=launches, busy=(g.get("busy"), e.get("busy")))
+                launches=launches, busy=(g.get("busy"), e.get("busy")),
+                profile=profile)
 
 
 def _window_graph_vs_eager(label, run):
@@ -2638,6 +2804,54 @@ def _window_graph_vs_eager(label, run):
                              "differ")
 
 
+def step_kernel_checks(sub, step_l):
+    """Phase 19's step checks (:func:`_step_check`): K8 on every analytic
+    case at 524,288 spins and at the MISST shape; the mesh step on the
+    bundle's halo pack (``sub`` at step ``step_l``) in both types and
+    perms, at a step 10 times longer, and at a budget of 3 checks.
+    Returns {"analytic": [records], "mesh": [records]}."""
+    from disimpy_tpu_torch import simulations
+    from disimpy_tpu_torch.engine import mesh_accel
+
+    n = 524288
+    records = {"analytic": [], "mesh": []}
+    for case in _analytic_cases(n) + _misst_cases():
+        records["analytic"].append(_step_check(*case))
+    g = torch.Generator(device="cuda").manual_seed(12)
+    # The bundle's halo pack at the bench step, in both types and perms;
+    # then float32 at a step 10 times longer (the remainder's heavy case:
+    # most spins bounce more than twice) and at a budget of 3 checks (exc
+    # set).
+    for dtype, mult, max_iter in ((torch.float32, 1, 1000),
+                                  (torch.float64, 1, 1000),
+                                  (torch.float32, 10, 1000),
+                                  (torch.float32, 1, 3)):
+        scale = 1.0 / (mult * step_l)
+        if mult == 1:
+            spec = simulations._classic_mesh_spec(sub, scale, dtype,
+                                                  torch.device("cuda"))
+        else:
+            spec = mesh_accel.pack_mesh(sub, scale, dtype, device="cuda")
+        if tuple(spec.spans) != (1, 1, 1):
+            raise AssertionError(f"the bundle at {mult} bench steps packs "
+                                 "the per-cell layout")
+        pos = (torch.rand((3, n), generator=g, device="cuda", dtype=dtype)
+               * spec.voxel_size[:, None])
+        eps = simulations._effective_epsilon(
+            1e-13, scale, float(np.max(sub.voxel_size)) * scale, 150, dtype,
+            False)
+        name = (f"bundle {str(dtype)[6:]}" + (f", {mult} x the bench step"
+                                              if mult != 1 else "")
+                + (f", max_iter {max_iter}" if max_iter != 1000 else ""))
+        for perm in (0.0, 0.5):
+            spec_p = dataclasses.replace(spec, perm_prob=torch.tensor(
+                perm, dtype=dtype, device="cuda"))
+            records["mesh"].append(_step_check(
+                "mesh", f"{name} perm {perm}", spec_p, pos, eps, max_iter,
+                min_exc=1 if max_iter < 1000 else 0))
+    return records
+
+
 def classic_on_card(bench, neuron, smi):
     """Phase 19: the classic engine on the card. The step kernels against
     their plain versions at 524,288 spins (K8 on every analytic case; K7 +
@@ -2651,26 +2865,10 @@ def classic_on_card(bench, neuron, smi):
     from disimpy_tpu_torch.engine import config, core, launch_count
 
     n = 524288
-    records = {"analytic": [], "mesh": []}
-    for case in _analytic_cases(n):
-        records["analytic"].append(_step_check(*case))
+    records = step_kernel_checks(bench["substrate"], bench["step_l"])
     sub, step_l = bench["substrate"], bench["step_l"]
     scale = 1.0 / step_l
-    g = torch.Generator(device="cuda").manual_seed(12)
-    for dtype in (torch.float32, torch.float64):
-        spec = simulations._classic_mesh_spec(sub, scale, dtype,
-                                              torch.device("cuda"))
-        pos = (torch.rand((3, n), generator=g, device="cuda", dtype=dtype)
-               * spec.voxel_size[:, None])
-        eps = simulations._effective_epsilon(
-            1e-13, scale, float(np.max(sub.voxel_size)) * scale, 150, dtype,
-            False)
-        for perm in (0.0, 0.5):
-            spec_p = dataclasses.replace(spec, perm_prob=torch.tensor(
-                perm, dtype=dtype, device="cuda"))
-            records["mesh"].append(_step_check(
-                "mesh", f"bundle {str(dtype)[6:]} perm {perm}", spec_p, pos,
-                eps))
+    g = torch.Generator(device="cuda").manual_seed(14)
 
     # Windows graphed against eager: tracked (the bundle, perm 0.5), a
     # two-block sweep, and a trajectory window.
@@ -2727,7 +2925,8 @@ def classic_on_card(bench, neuron, smi):
                 f"{kind} MISST {delta} ms, 1e5 x 1000 x 100 b ({smi})",
                 lambda seed, substrate=substrate: simulations.simulation(
                     100000, DIFFUSIVITY, gradient, dt, substrate, seed=seed,
-                    quiet=True, final_pos=True, device="cuda"))
+                    quiet=True, final_pos=True, device="cuda"),
+                profiled=(kind, delta) == ("sphere", 30))
     classify = {
         "bundle": _classify_check("bench bundle", sub, n),
         "neuron": _classify_check("neuron", neuron["substrate"], n),
@@ -2736,7 +2935,11 @@ def classic_on_card(bench, neuron, smi):
           if r["label"] == "sphere float32 perm 0.0 one radius"][0]
     k9 = [r for r in records["mesh"]
           if r["label"] == "bundle float32 perm 0.0"][0]
-    return dict(records=records, runs=runs, classify=classify, k8=k8, k9=k9)
+    k8_misst = [r for r in records["analytic"]
+                if r["label"].startswith("sphere float32 MISST shape")][0]
+    ms, c = runs["sphere", 30]["profile"]["K8"]
+    return dict(records=records, runs=runs, classify=classify, k8=k8, k9=k9,
+                k8_misst=k8_misst, k8_run_ms=ms / c)
 
 
 def main():
@@ -2854,6 +3057,10 @@ def main():
             "bound_ms": cc["k8"]["bound_ms"],
             "bound_by": cc["k8"]["bound_by"],
             "library_ms": None,
+            "misst_ms": cc["k8_misst"]["ms"],
+            "misst_plain_ms": cc["k8_misst"]["plain_ms"],
+            "misst_bound_ms": cc["k8_misst"]["bound_ms"],
+            "misst_run_ms": cc["k8_run_ms"],
         },
         {
             "name": "mesh_bounce",
@@ -2867,6 +3074,10 @@ def main():
             "max_abs_err": max(r["max_abs_err"]
                                for r in cc["records"]["mesh"]),
             "ms": cc["k9"]["k9_ms"],
+            "staged_ms": cc["k9"]["later_ms"],
+            "remainder_ms": cc["k9"]["rest_ms"],
+            "staged_launches": cc["runs"]["bundle", "float32"]["launches"][
+                "mesh_later"],
             "step_ms": cc["k9"]["ms"],
             "plain_ms": cc["k9"]["plain_ms"],
             "bound_ms": cc["k9"]["bound_ms"],

@@ -1,5 +1,6 @@
 // K8: one classic time step on an analytic substrate (sphere, cylinder,
-// ellipsoid), one thread per spin, its whole bounce loop in the thread.
+// ellipsoid): every spin's direction and first collision check in step,
+// then the spins that still collide on dense warps.
 //
 // Has no Pallas counterpart: it replaces the XLA ops of the JAX package's
 // masked bounce loop (disimpy_tpu/engine/stepping.py:143-176, a
@@ -19,12 +20,28 @@
 // k-th check draws at bounce index k - 1, as the batched plain loop keys
 // it by pass index, so the two draw the same uniforms.
 //
-// What bounds it on the H100: the bytes, 24 (float32) or 48 (float64) read
-// and 29 / 53 written per spin-step (positions in and out, ids, exc,
-// crossings); ~50 floating-point operations per bounce pass and ~90 for
-// the draw are far below the card's rates at ~1-2 passes per step. The
-// (3, n) rows are read and written by neighbouring threads at neighbouring
-// addresses, so every access is coalesced.
+// The schedule: a block of 128 threads takes 128 spins; each thread draws
+// its spin's direction and runs its first check, and the spins that still
+// collide (1.04-1.31 checks per spin in the phase 19 cases) join a queue
+// in the block's shared memory (__ballot_sync and __popc, one shared
+// atomic per warp); after a barrier, thread j carries queued spin j
+// through its later checks, so those run on the block's first warps, dense,
+// and not on every warp with most lanes masked, as when one thread ran its
+// spin's whole loop. 128-thread blocks put the analytic MISST runs' 1e5
+// spins on 782 blocks, all resident on the 132 SMs at once.
+//
+// What bounds it on the H100: not the bytes (24 or 48 read and 29 or 53
+// written per spin-step: 0.0052 / 0.0089 ms at 524,288 spins, 0.0010 ms
+// at 1e5) nor the masked later checks. Measured on an NVIDIA H100 80GB
+// HBM3 at 700 W (scripts/classic_step_ab.py, the one-thread-per-spin
+// kernel and this one in one call), the queue changes the time by -5% to
+// +13%: 0.0156-0.0412 ms against 0.0148-0.0389 ms at 524,288 spins, and
+// 0.0060-0.0076 against 0.0054-0.0068 ms at 1e5, where the launch is one
+// wave and its time one spin's chain of dependent, correctly rounded
+// divisions, square roots and threefry rounds. So K8 is latency-bound:
+// each spin's check is a long dependent chain, and a warp-level queue or
+// another block size leaves it there too. In an analytic MISST run K8 is
+// ~5.5 of ~75 ms of device time; the phase product takes ~60.
 //
 // Rounding: every operation follows the torch operator the plain version
 // applies, one IEEE operation each (krng::mul_rn and friends: nvcc must not
@@ -59,7 +76,7 @@ using krng::mul_rn;
 using krng::sqrt_rn;
 using krng::sub_rn;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;  // threads of a block, and its queue's slots
 enum Kind { kSphere = 0, kCylinder = 1, kEllipsoid = 2 };
 
 __device__ __forceinline__ float inf_of(float) { return CUDART_INF_F; }
@@ -151,6 +168,85 @@ __device__ __forceinline__ T distance_and_normal(const T r[3], const T dir[3],
   return d;
 }
 
+// The per-step values every check of a spin reads.
+template <typename T>
+struct SpinArgs {
+  const T* g;     // radius, or the ellipsoid's 1 / semiaxes^2
+  T perm, eps;
+  uint32_t id;
+};
+
+template <typename T>
+__device__ __forceinline__ SpinArgs<T> spin_args(
+    int i, const int* __restrict__ ids, const T* __restrict__ geom,
+    int geom_stride, const T* __restrict__ perm_p, int perm_stride,
+    const T* __restrict__ eps_p, int eps_stride) {
+  return SpinArgs<T>{geom + (long)i * geom_stride,
+                     perm_p[(long)i * perm_stride],
+                     eps_p[(long)i * eps_stride], (uint32_t)ids[i]};
+}
+
+// One collision check of a spin at r moving along dir with rem step
+// lengths left: iters += 1; d = the forward root; on a hit (d > 0 and d <
+// rem + slack) the uniform of bounce index iters - 1 decides cross or
+// reflect, and rem -= d + epsilon. Returns whether the spin still collides
+// (hit, rem > 0 and iters < max_iter).
+template <typename T, int K>
+__device__ __forceinline__ bool check(T r[3], T dir[3], T& rem, int& iters,
+                                      int& cross, const SpinArgs<T>& sa,
+                                      uint32_t seed, uint32_t t,
+                                      int max_iter) {
+  ++iters;
+  T normal[3];
+  const T d = distance_and_normal<T, K>(r, dir, sa.g, sa.perm, normal);
+  const bool hit = d > (T)0 && d < add_rn(rem, slack_of(T(0)));
+  if (hit) {
+    const bool through = krng::bounce_uniform<T>(seed, t, sa.id,
+                                                 (uint32_t)(iters - 1)) <
+                         sa.perm;
+    T v[3];
+    for (int a = 0; a < 3; ++a) v[a] = mul_rn(d, dir[a]);
+    const T dp = dot(v, normal);
+    if (through) {
+      // geometry.crossing_rows: epsilon past the wall, same direction.
+      const T s = dp < (T)0 ? (T)-1 : (T)1;
+      for (int a = 0; a < 3; ++a) {
+        r[a] = add_rn(add_rn(r[a], v[a]), mul_rn(sa.eps, s * normal[a]));
+      }
+      ++cross;
+    } else {
+      // geometry.reflect_rows: mirror the direction, epsilon inside.
+      const T s = dp > (T)0 ? (T)-1 : (T)1;
+      const T two_dp = mul_rn((T)2, -fabs(dp));
+      T w[3];
+      for (int a = 0; a < 3; ++a) {
+        const T na = s * normal[a];
+        r[a] = add_rn(add_rn(r[a], v[a]), mul_rn(sa.eps, na));
+        w[a] = sub_rn(v[a], mul_rn(two_dp, na));
+      }
+      normalize(w);
+      for (int a = 0; a < 3; ++a) dir[a] = w[a];
+    }
+    rem = sub_rn(rem, add_rn(d, sa.eps));
+  }
+  return hit && rem > (T)0 && iters < max_iter;
+}
+
+// The spin's end of step: r + dir * rem, the budget flag, the crossings.
+template <typename T>
+__device__ __forceinline__ void write_spin(int i, int n, const T r[3],
+                                           const T dir[3], T rem, int iters,
+                                           int cross, int max_iter,
+                                           T* __restrict__ out,
+                                           uint8_t* __restrict__ exc,
+                                           int* __restrict__ crossings) {
+  for (int a = 0; a < 3; ++a) {
+    out[(long)a * n + i] = add_rn(r[a], mul_rn(dir[a], rem));
+  }
+  exc[i] = iters >= max_iter;
+  crossings[i] = cross;
+}
+
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads) analytic_step_kernel(
     const T* __restrict__ pos,       // (3, n) start of the step
@@ -164,62 +260,64 @@ __global__ void __launch_bounds__(kThreads) analytic_step_kernel(
     T* __restrict__ out,             // (3, n) end of the step
     uint8_t* __restrict__ exc,       // (n,) bool
     int* __restrict__ crossings) {   // (n,)
+  // The block's queue of spins that still collide after their first check:
+  // index, position, direction, rem and crossings.
+  __shared__ int q_count;
+  __shared__ int q_spin[kThreads], q_cross[kThreads];
+  __shared__ T q_r[3][kThreads], q_dir[3][kThreads], q_rem[kThreads];
+  if (threadIdx.x == 0) q_count = 0;
+  __syncthreads();
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
   const uint32_t seed = (uint32_t)__ldg(seed_p);
   const uint32_t t = (uint32_t)__ldg(t_p);
-  const uint32_t id = (uint32_t)ids[i];
-  const T* g = geom + (long)i * geom_stride;
-  const T perm = perm_p[(long)i * perm_stride];
-  const T eps = eps_p[(long)i * eps_stride];
-  const T slack = slack_of(T(0));
-  T dir[3], r[3];
-  krng::unit_direction<T>(seed, t, id, dir);
-  for (int a = 0; a < 3; ++a) r[a] = pos[(long)a * n + i];
-  T rem = (T)1;
+  // Check 1, every spin of the block in step: draw, root, resolve.
+  T dir[3], r[3], rem = (T)1;
   int iters = 0, cross = 0;
-  bool active = true;
-  while (active) {
-    ++iters;
-    T normal[3];
-    const T d = distance_and_normal<T, K>(r, dir, g, perm, normal);
-    const bool hit = d > (T)0 && d < add_rn(rem, slack);
-    if (hit) {
-      // Collision check `iters` draws at bounce index iters - 1.
-      const bool through =
-          krng::bounce_uniform<T>(seed, t, id, (uint32_t)(iters - 1)) < perm;
-      T v[3];
-      for (int a = 0; a < 3; ++a) v[a] = mul_rn(d, dir[a]);
-      const T dp = dot(v, normal);
-      if (through) {
-        // geometry.crossing_rows: epsilon past the wall, same direction.
-        const T s = dp < (T)0 ? (T)-1 : (T)1;
-        for (int a = 0; a < 3; ++a) {
-          r[a] = add_rn(add_rn(r[a], v[a]), mul_rn(eps, s * normal[a]));
-        }
-        ++cross;
-      } else {
-        // geometry.reflect_rows: mirror the direction, epsilon inside.
-        const T s = dp > (T)0 ? (T)-1 : (T)1;
-        const T two_dp = mul_rn((T)2, -fabs(dp));
-        T w[3];
-        for (int a = 0; a < 3; ++a) {
-          const T na = s * normal[a];
-          r[a] = add_rn(add_rn(r[a], v[a]), mul_rn(eps, na));
-          w[a] = sub_rn(v[a], mul_rn(two_dp, na));
-        }
-        normalize(w);
-        for (int a = 0; a < 3; ++a) dir[a] = w[a];
-      }
-      rem = sub_rn(rem, add_rn(d, eps));
+  bool active = false;
+  if (i < n) {
+    const SpinArgs<T> sa = spin_args(i, ids, geom, geom_stride, perm_p,
+                                     perm_stride, eps_p, eps_stride);
+    krng::unit_direction<T>(seed, t, sa.id, dir);
+    for (int a = 0; a < 3; ++a) r[a] = pos[(long)a * n + i];
+    active = check<T, K>(r, dir, rem, iters, cross, sa, seed, t, max_iter);
+    if (!active) {
+      write_spin(i, n, r, dir, rem, iters, cross, max_iter, out, exc,
+                 crossings);
     }
-    active = hit && rem > (T)0 && iters < max_iter;
   }
+  // The spins that still collide join the queue: one atomic per warp.
+  const int lane = threadIdx.x & 31;
+  const unsigned mask = __ballot_sync(0xffffffffu, active);
+  int base = 0;
+  if (lane == 0 && mask != 0u) base = atomicAdd(&q_count, __popc(mask));
+  base = __shfl_sync(0xffffffffu, base, 0);
+  if (active) {
+    const int j = base + __popc(mask & ((1u << lane) - 1u));
+    q_spin[j] = i;
+    q_cross[j] = cross;
+    q_rem[j] = rem;
+    for (int a = 0; a < 3; ++a) {
+      q_r[a][j] = r[a];
+      q_dir[a][j] = dir[a];
+    }
+  }
+  __syncthreads();
+  // Checks 2 and later on dense warps: thread j takes queued spin j.
+  const int j = threadIdx.x;
+  if (j >= q_count) return;
+  const int k = q_spin[j];
+  const SpinArgs<T> sa = spin_args(k, ids, geom, geom_stride, perm_p,
+                                   perm_stride, eps_p, eps_stride);
   for (int a = 0; a < 3; ++a) {
-    out[(long)a * n + i] = add_rn(r[a], mul_rn(dir[a], rem));
+    r[a] = q_r[a][j];
+    dir[a] = q_dir[a][j];
   }
-  exc[i] = iters >= max_iter;
-  crossings[i] = cross;
+  rem = q_rem[j];
+  cross = q_cross[j];
+  iters = 1;
+  while (check<T, K>(r, dir, rem, iters, cross, sa, seed, t, max_iter)) {
+  }
+  write_spin(k, n, r, dir, rem, iters, cross, max_iter, out, exc, crossings);
 }
 
 template <typename T, int K>

@@ -44,21 +44,45 @@
 //
 // K9, the classic mesh step on the card (mesh_step_launch_*): the JAX
 // package's step_mesh while-loop (disimpy_tpu/engine/stepping.py:262-341),
-// whose later passes call K2 under lax.while_loop, as one stream of
-// kernels with no host sync:
+// whose later passes call K2 on the compacted subset under lax.while_loop,
+// as one fixed stream of kernels with no host sync:
 //   a. the first bounce pass is the query above on the whole batch, with
 //      an epilogue in the hit pass: lane 0 of each spin resolves its hit
 //      (stepping._resolve_mesh_hits: the bounce-0 uniform drawn in-kernel,
 //      reflect or cross, rem -= d), sets iters = 1 and appends the spin to
 //      a device worklist if it still collides;
-//   b. bounce_pass: a fixed grid of blocks walks the worklist, one warp per
-//      spin, and loops that spin's later bounces to the end of its step;
-//   c. finish_pass writes r0 + dir * rem and iters >= max_iter.
-// What bounds it: as for K2, the record tests, ~180 per spin and pass on
-// the bench bundle; the later passes concern the spins the first one
-// reflected, and their rows are read through L2 (no shared-memory tile can
-// serve a spin's later bounces, which may move it to another cell).
-//
+//   b. the second check, grouped by cell as the first: relist_cells,
+//      relist_scan and relist_scatter (K2's cell, scan and scatter logic
+//      over the worklist, its length read on the device) sort the listed
+//      spins by the halo cell of their next segment into tiles, and
+//      later_pass stages each tile's row in shared memory as the hit pass
+//      does and resolves the check (lane 0 of each spin: the uniform of
+//      bounce index iters - 1, drawn once); a spin that still collides goes
+//      to a second, short list;
+//   c. bounce_pass (the remainder): a fixed grid of blocks walks the second
+//      list, one warp per spin, and loops that spin's later bounces to the
+//      end of its step, reading its rows from global memory;
+//   d. finish_pass writes r0 + dir * rem and iters >= max_iter.
+// Why sorted and not in the hit pass's order: a bounce moves the segment's
+// bounding box, so a spin's next halo cell need not be the first pass's;
+// sorting tests every listed spin against its own row, with no fallback,
+// with the first pass's own cell, scan and scatter logic.
+// What bounds it on the H100 (measured on an NVIDIA H100 80GB HBM3 at 700
+// W, float32 bench bundle step, 63,290 listed spins): K9 as first written
+// (commit 9f0b714) ran every later check as one warp reading its spin's
+// row (~178 records) from L2 or HBM in worklist order, 0.160 ms. Staged
+// by cell, the second checks read ~57 MB of rows once, but later_pass
+// still takes ~0.07 ms (0.105 in float64): it is held by the record tests
+// of sparse tiles (~9 spins per row, 11.8 million tests, two thirds of
+// the hit pass's rate), not by the rows' bytes. A persistent grid, capped
+// sort grids and a non-power-of-two lane split did not beat this kernel;
+// 96-record stages (all of a typical row in flight at once) beat the
+// pack's 46-record chunks (sort and staged pass 0.094 ms against 0.100).
+// The sort takes ~0.022 ms (its one-block scan 0.013), the remainder
+// 0.02-0.04 ms (the longest spin's chain of up to 17 checks) and the tail
+// 0.007 ms. Bound: 0.025 ms (bytes: the rows the later checks read, once,
+// and the spins' state).
+
 // The record test keeps _mt_block's order (inv_det = 1 / det, then t, u
 // and v as products with it), so the kernel and the plain torch version
 // differ only by nvcc's FMA contraction.
@@ -88,8 +112,9 @@ using krng::sub_rn;
 
 constexpr int kTile = 128;   // threads of a hit block; most spins per tile
 constexpr int kStage = 64;   // most records staged at once
+constexpr int kLaterStage = 96;  // most records later_pass stages at once
 constexpr int kScan = 1024;  // threads of the one-block scan
-constexpr int kBounce = 256;  // threads of a K9 block: eight warps
+constexpr int kBounce = 256;  // threads of a remainder block: eight warps
 
 __device__ __forceinline__ float inf_of(float) { return CUDART_INF_F; }
 __device__ __forceinline__ double inf_of(double) { return CUDART_INF; }
@@ -108,6 +133,8 @@ struct StepState {
   int* crossings;           // (n,) membrane transits
   int* list;                // spins still colliding after the first pass
   int* n_list;              // () their count
+  int* rest;                // spins still colliding after the second check
+  int* n_rest;              // () their count
   const int* ids;           // (n,) spin ids keying the draws
   const int* seed;          // () RNG key
   const int* t;             // () step
@@ -207,9 +234,11 @@ __global__ void __launch_bounds__(256) cell_pass(
 
 // One block: exclusive scans of the per-cell spin counts and tile counts,
 // then each cell's tiles as (cell, first sorted position, spins).
-__global__ void __launch_bounds__(kScan) scan_pass(
-    const int* __restrict__ fill, int n_cells, int* __restrict__ start,
-    int4* __restrict__ tiles, int* __restrict__ n_tiles) {
+__device__ __forceinline__ void scan_cells(const int* __restrict__ fill,
+                                           int n_cells,
+                                           int* __restrict__ start,
+                                           int4* __restrict__ tiles,
+                                           int* __restrict__ n_tiles) {
   __shared__ int sa[kScan], sb[kScan];
   const int tid = threadIdx.x;
   const int per = (n_cells + kScan - 1) / kScan;
@@ -241,6 +270,12 @@ __global__ void __launch_bounds__(kScan) scan_pass(
     pos += cnt;
   }
   if (tid == kScan - 1) *n_tiles = sb[kScan - 1];
+}
+
+__global__ void __launch_bounds__(kScan) scan_pass(
+    const int* __restrict__ fill, int n_cells, int* __restrict__ start,
+    int4* __restrict__ tiles, int* __restrict__ n_tiles) {
+  scan_cells(fill, n_cells, start, tiles, n_tiles);
 }
 
 __global__ void __launch_bounds__(256) scatter_pass(
@@ -328,41 +363,28 @@ __device__ __forceinline__ void min_butterfly(T& best, int& best_k, int L) {
   }
 }
 
-// kResolve (the classic step's first pass): instead of writing min_d and
-// the normal, lane 0 of each spin resolves the hit into st (the bounce-0
-// uniform drawn here) and lists the spin for K9 if it still collides.
-template <typename T, bool kResolve>
-__global__ void __launch_bounds__(kTile) hit_pass(
-    const T* __restrict__ r0, const T* __restrict__ dir,
-    const T* __restrict__ rem, const T* __restrict__ tri,
-    const int* __restrict__ counts, const T* __restrict__ sv_width,
-    const T* __restrict__ voxel, int n0, int n1, int n2, int k_pad,
-    int stage, T edge_tol, const int* __restrict__ perm,
-    const int4* __restrict__ tiles, const int* __restrict__ n_tiles,
-    T* __restrict__ out_d, T* __restrict__ out_n, StepState<T> st) {
-  // Raw records as they arrive (double-buffered), and the staged columns:
-  // A (0-2), E1 (3-5), E2 (6-8), normal (9-11).
-  __shared__ __align__(16) T raw[2][kStage * 12];
-  __shared__ T col[12][kStage];
-  if ((int)blockIdx.x >= *n_tiles) return;
-  const int4 tl = tiles[blockIdx.x];
-  const int cell = tl.x, s_count = tl.z;
-  int L = 1;
-  while (L < 32 && 2 * L * s_count <= kTile) L *= 2;
-  const int slot = threadIdx.x / L;
-  const int lane = threadIdx.x & (L - 1);
-  const bool live = slot < s_count;
-  const int nsv[3] = {n0, n1, n2};
+// A tile's shared memory: the raw records as they arrive (double-buffered)
+// and the staged columns A (0-2), E1 (3-5), E2 (6-8), normal (9-11).
+template <typename T, int kCap>
+struct __align__(16) TileRows {
+  T raw[2][kCap * 12];
+  T col[12][kCap];
+};
+
+// The nearest hit of a tile's spins in one row: the row (cnt records)
+// streams through shared memory in stages of `stage` records (cp.async,
+// 16-byte copies, double-buffered) and is stored as (A, E1, E2, normal)
+// columns; lane `lane` of a live spin's L lanes tests records lane, lane +
+// L, ... keeping its first minimum, and the L lanes reduce by (t, record).
+// Every thread of the block calls it; best and best_k end up in every lane
+// of a live spin (inf and -1 where nothing is hit).
+template <typename T, int kCap>
+__device__ __forceinline__ void tile_nearest(
+    TileRows<T, kCap>& sm, const T* __restrict__ row, int cnt, int stage,
+    bool live, int L, int lane, const T s[3], const T d[3], T edge_tol,
+    T& best, int& best_k) {
   const T lo_tol = -edge_tol;
   const T hi_tol = T(1) + edge_tol;
-  T s[3] = {T(0), T(0), T(0)}, d[3] = {T(0), T(0), T(0)};
-  int i = 0;
-  if (live) {
-    i = perm[tl.y + slot];
-    halo_cell(r0, dir, rem, i, sv_width, voxel, nsv, s, d);
-  }
-  const int cnt = counts[cell];
-  const T* row = tri + (size_t)cell * k_pad * 12;
   const int n_stages = (cnt + stage - 1) / stage;
   constexpr int kPieces = 12 * sizeof(T) / 16;  // 16-byte copies per record
 
@@ -371,7 +393,7 @@ __global__ void __launch_bounds__(kTile) hit_pass(
       const int k0 = st * stage;
       const int pieces = min(stage, cnt - k0) * kPieces;
       const char* src = reinterpret_cast<const char*>(row + 12 * k0);
-      char* dst = reinterpret_cast<char*>(raw[st & 1]);
+      char* dst = reinterpret_cast<char*>(sm.raw[st & 1]);
       for (int p = threadIdx.x; p < pieces; p += kTile) {
         cp_async16(dst + 16 * p, src + 16 * p);
       }
@@ -379,8 +401,8 @@ __global__ void __launch_bounds__(kTile) hit_pass(
     cp_async_commit();  // empty groups keep the count uniform
   };
 
-  T best = inf_of(T(0));
-  int best_k = -1;
+  best = inf_of(T(0));
+  best_k = -1;
   issue(0);
   issue(1);
   for (int st = 0; st < n_stages; ++st) {
@@ -389,27 +411,27 @@ __global__ void __launch_bounds__(kTile) hit_pass(
     const int k0 = st * stage;
     const int nrec = min(stage, cnt - k0);
     for (int k = threadIdx.x; k < nrec; k += kTile) {
-      const T* q = raw[st & 1] + 12 * k;
+      const T* q = sm.raw[st & 1] + 12 * k;
       const T ax = q[0], ay = q[1], az = q[2];
-      col[0][k] = ax;
-      col[1][k] = ay;
-      col[2][k] = az;
-      col[3][k] = q[3] - ax;
-      col[4][k] = q[4] - ay;
-      col[5][k] = q[5] - az;
-      col[6][k] = q[6] - ax;
-      col[7][k] = q[7] - ay;
-      col[8][k] = q[8] - az;
-      col[9][k] = q[9];
-      col[10][k] = q[10];
-      col[11][k] = q[11];
+      sm.col[0][k] = ax;
+      sm.col[1][k] = ay;
+      sm.col[2][k] = az;
+      sm.col[3][k] = q[3] - ax;
+      sm.col[4][k] = q[4] - ay;
+      sm.col[5][k] = q[5] - az;
+      sm.col[6][k] = q[6] - ax;
+      sm.col[7][k] = q[7] - ay;
+      sm.col[8][k] = q[8] - az;
+      sm.col[9][k] = q[9];
+      sm.col[10][k] = q[10];
+      sm.col[11][k] = q[11];
     }
     __syncthreads();  // col holds stage st; raw[st & 1] is free
     issue(st + 2);
     if (live) {
       for (int kl = (lane - k0) & (L - 1); kl < nrec; kl += L) {
         T c[9];
-        for (int q = 0; q < 9; ++q) c[q] = col[q][kl];
+        for (int q = 0; q < 9; ++q) c[q] = sm.col[q][kl];
         T t;
         if (record_test(s, d, c, lo_tol, hi_tol, &t) && t < best) {
           best = t;
@@ -421,6 +443,49 @@ __global__ void __launch_bounds__(kTile) hit_pass(
   // The spin's L lanes are aligned within a warp: a butterfly leaves the
   // lexicographic minimum of (t, record) in every lane.
   min_butterfly(best, best_k, L);
+}
+
+// Lanes per spin of a tile of s spins: the largest power of two up to 32
+// with L s <= kTile.
+__device__ __forceinline__ int lanes_per_spin(int s) {
+  int L = 1;
+  while (L < 32 && 2 * L * s <= kTile) L *= 2;
+  return L;
+}
+
+// kResolve (the classic step's first pass): instead of writing min_d and
+// the normal, lane 0 of each spin resolves the hit into st (the bounce-0
+// uniform drawn here) and lists the spin for the later passes if it still
+// collides.
+template <typename T, bool kResolve>
+__global__ void __launch_bounds__(kTile) hit_pass(
+    const T* __restrict__ r0, const T* __restrict__ dir,
+    const T* __restrict__ rem, const T* __restrict__ tri,
+    const int* __restrict__ counts, const T* __restrict__ sv_width,
+    const T* __restrict__ voxel, int n0, int n1, int n2, int k_pad,
+    int stage, T edge_tol, const int* __restrict__ perm,
+    const int4* __restrict__ tiles, const int* __restrict__ n_tiles,
+    T* __restrict__ out_d, T* __restrict__ out_n, StepState<T> st) {
+  __shared__ TileRows<T, kStage> sm;
+  if ((int)blockIdx.x >= *n_tiles) return;
+  const int4 tl = tiles[blockIdx.x];
+  const int cell = tl.x, s_count = tl.z;
+  const int L = lanes_per_spin(s_count);
+  const int slot = threadIdx.x / L;
+  const int lane = threadIdx.x & (L - 1);
+  const bool live = slot < s_count;
+  const int nsv[3] = {n0, n1, n2};
+  T s[3] = {T(0), T(0), T(0)}, d[3] = {T(0), T(0), T(0)};
+  int i = 0;
+  if (live) {
+    i = perm[tl.y + slot];
+    halo_cell(r0, dir, rem, i, sv_width, voxel, nsv, s, d);
+  }
+  const T* row = tri + (size_t)cell * k_pad * 12;
+  T best;
+  int best_k;
+  tile_nearest(sm, row, counts[cell], stage, live, L, lane, s, d, edge_tol,
+               best, best_k);
   if (!live || lane != 0) return;
   if (!kResolve) {
     out_d[i] = best;
@@ -457,16 +522,122 @@ __global__ void __launch_bounds__(kTile) hit_pass(
   }
 }
 
-// K9: the later bounces of the spins the first pass listed, each to the
-// end of its step (stepping.step_mesh's compacted loop). A fixed grid of
-// blocks walks the list, one warp per spin: the warp's 32 lanes split the
-// spin's halo row (lane j tests records j, j + 32, ... in global memory,
-// keeping its first minimum), reduce by (t, record) as the hit pass does,
-// and every lane then resolves the same hit. The spin's row is chosen again
-// for every bounce: a row holds only the segments whose bounding-box
-// minimum corner lies in its cell (engine/mesh_accel.py), so a bounce that
-// leaves the cell needs another row. Collision check k draws at bounce
-// index k - 1.
+// The listed spins in cell order for later_pass, as cell_pass, scan_pass
+// and scatter_pass order the whole batch: the halo cell of each listed
+// spin's next segment (from the state the first pass resolved) and its rank
+// there, over a fixed grid that reads the list's length on the device.
+template <typename T>
+__global__ void __launch_bounds__(256) relist_cells(
+    StepState<T> st, const T* __restrict__ sv_width,
+    const T* __restrict__ voxel, int n0, int n1, int n2,
+    int* __restrict__ fill, int* __restrict__ cell_of,
+    int* __restrict__ rank_of) {
+  const int nsv[3] = {n0, n1, n2};
+  const int m = *st.n_list;
+  for (int w = blockIdx.x * blockDim.x + threadIdx.x; w < m;
+       w += gridDim.x * blockDim.x) {
+    T s[3], d[3];
+    const int cell = halo_cell<T>(st.r0, st.dir, st.rem, st.list[w],
+                                  sv_width, voxel, nsv, s, d);
+    cell_of[w] = cell;
+    rank_of[w] = atomicAdd(fill + cell, 1);
+  }
+}
+
+// scan_pass under its own name, so that a profile tells K9's sort from
+// K2's.
+__global__ void __launch_bounds__(kScan) relist_scan(
+    const int* __restrict__ fill, int n_cells, int* __restrict__ start,
+    int4* __restrict__ tiles, int* __restrict__ n_tiles) {
+  scan_cells(fill, n_cells, start, tiles, n_tiles);
+}
+
+__global__ void __launch_bounds__(256) relist_scatter(
+    const int* __restrict__ list, const int* __restrict__ n_list,
+    const int* __restrict__ cell_of, const int* __restrict__ rank_of,
+    const int* __restrict__ start, int* __restrict__ perm) {
+  const int m = *n_list;
+  for (int w = blockIdx.x * blockDim.x + threadIdx.x; w < m;
+       w += gridDim.x * blockDim.x) {
+    perm[start[cell_of[w]] + rank_of[w]] = list[w];
+  }
+}
+
+// K9's second check (stepping.step_mesh's first compacted pass): one block
+// per tile of listed spins that share the next segment's halo cell, the
+// row staged once in shared memory (tile_nearest, as the hit pass), and
+// lane 0 of each spin resolving its hit with the uniform of bounce index
+// iters - 1 and the gathered rows' normalize order. A spin that still
+// collides goes to the remainder list.
+template <typename T>
+__global__ void __launch_bounds__(kTile) later_pass(
+    StepState<T> st, const T* __restrict__ tri,
+    const int* __restrict__ counts, const T* __restrict__ sv_width,
+    const T* __restrict__ voxel, int n0, int n1, int n2, int k_pad,
+    T edge_tol, const int* __restrict__ perm,
+    const int4* __restrict__ tiles, const int* __restrict__ n_tiles) {
+  __shared__ TileRows<T, kLaterStage> sm;
+  if ((int)blockIdx.x >= *n_tiles) return;
+  const int4 tl = tiles[blockIdx.x];
+  const int cell = tl.x, s_count = tl.z;
+  const int L = lanes_per_spin(s_count);
+  const int slot = threadIdx.x / L;
+  const int lane = threadIdx.x & (L - 1);
+  const bool live = slot < s_count;
+  const int nsv[3] = {n0, n1, n2};
+  T p[3] = {T(0), T(0), T(0)}, dd[3] = {T(0), T(0), T(0)};
+  T s[3] = {T(0), T(0), T(0)}, rm = T(0);
+  int i = 0;
+  if (live) {
+    i = perm[tl.y + slot];
+    for (int a = 0; a < 3; ++a) {
+      p[a] = st.r0[3 * i + a];
+      dd[a] = st.dir[3 * i + a];
+    }
+    rm = st.rem[i];
+    halo_cell_of(p, dd, rm, sv_width, voxel, nsv, s);
+  }
+  const T* row = tri + (size_t)cell * k_pad * 12;
+  T best;
+  int best_k;
+  tile_nearest(sm, row, counts[cell], kLaterStage, live, L, lane, s, dd,
+               edge_tol, best, best_k);
+  if (!live || lane != 0) return;
+  const int iters = st.iters[i] + 1;
+  int cross = st.crossings[i];
+  const bool hit = best <= add_rn(rm, slack_of(T(0)));
+  if (hit) {
+    T nrm[3];
+    for (int a = 0; a < 3; ++a) nrm[a] = row[12 * best_k + 9 + a];
+    const bool through =
+        krng::bounce_uniform<T>((uint32_t)__ldg(st.seed),
+                                (uint32_t)__ldg(st.t), (uint32_t)st.ids[i],
+                                (uint32_t)(iters - 1)) < *st.perm;
+    resolve_hit<T, true>(p, dd, rm, best, nrm, through, *st.eps);
+    cross += through;
+  }
+  for (int a = 0; a < 3; ++a) {
+    st.r0[3 * i + a] = p[a];
+    st.dir[3 * i + a] = dd[a];
+  }
+  st.rem[i] = rm;
+  st.iters[i] = iters;
+  st.crossings[i] = cross;
+  if (hit && rm > T(0) && iters < st.max_iter) {
+    st.rest[atomicAdd(st.n_rest, 1)] = i;
+  }
+}
+
+// K9's remainder: the later bounces of the spins on st.list (the launch
+// passes the second check's list), each to the end of its step
+// (stepping.step_mesh's compacted loop). A fixed grid of blocks walks the
+// list, one warp per spin: the warp's 32 lanes split the spin's halo row
+// (lane j tests records j, j + 32, ... in global memory, keeping its first
+// minimum), reduce by (t, record) as the hit pass does, and every lane then
+// resolves the same hit. The spin's row is chosen again for every bounce: a
+// row holds only the segments whose bounding-box minimum corner lies in its
+// cell (engine/mesh_accel.py), so a bounce that leaves the cell needs
+// another row. Collision check k draws at bounce index k - 1.
 template <typename T>
 __global__ void __launch_bounds__(kBounce) bounce_pass(
     StepState<T> st, const T* __restrict__ tri,
@@ -588,13 +759,14 @@ int grid_for(int n, int threads) {
   return (int)(want < 65536 ? want : 65536);
 }
 
-// A classic step's worklist after the query scratch: its count (padded to
-// 16 bytes) and up to n spin indices.
+// A classic step's worklists after the query scratch: their two counts
+// (padded to 16 bytes), then the first pass's list and the second check's,
+// up to n spin indices each.
 long long step_scratch_words(int n, int n_cells) {
-  return scratch_words(n, n_cells) + 4 + n;
+  return scratch_words(n, n_cells) + 4 + 2LL * n;
 }
 
-// K9's grid: as many blocks as fit on the card at once.
+// The remainder's grid: as many blocks as fit on the card at once.
 template <typename T>
 int bounce_blocks() {
   static int blocks = 0;
@@ -649,8 +821,10 @@ int launch_query(const void* r0, const void* dir, const void* rem,
                           StepState<T>{}, scratch, (cudaStream_t)stream);
 }
 
-// One classic mesh step: the first pass with its resolve, K9 over the spins
-// it listed, and the tail.
+// One classic mesh step: the first pass with its resolve; K9: the listed
+// spins sorted by cell, their second check on staged rows, the remainder's
+// warp-per-spin loop; the tail. The first pass's query scratch serves the
+// sort again once the hit pass is done (stream order).
 template <typename T>
 int launch_step(const void* r0, const void* dir, const void* rem,
                 const void* tri, const void* counts, const void* sv_width,
@@ -661,20 +835,38 @@ int launch_step(const void* r0, const void* dir, const void* rem,
                 void* iters, void* crossings, void* out, void* exc,
                 void* scratch, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  int* list = static_cast<int*>(scratch) + scratch_words(n, n0 * n1 * n2);
-  StepState<T> step{(T*)s_r0,          (T*)s_dir,        (T*)s_rem,
-                    (int*)iters,       (int*)crossings,  list + 4,
-                    list,              (const int*)ids,  (const int*)seed,
-                    (const int*)t,     (const T*)perm,   (const T*)eps,
-                    max_iter};
-  cudaError_t rc = cudaMemsetAsync(list, 0, sizeof(int), st);
+  const int n_cells = n0 * n1 * n2;
+  int* head = static_cast<int*>(scratch) + scratch_words(n, n_cells);
+  StepState<T> step{(T*)s_r0,        (T*)s_dir,       (T*)s_rem,
+                    (int*)iters,     (int*)crossings, head + 4,
+                    head,            head + 4 + n,    head + 1,
+                    (const int*)ids, (const int*)seed, (const int*)t,
+                    (const T*)perm,  (const T*)eps,   max_iter};
+  cudaError_t rc = cudaMemsetAsync(head, 0, 2 * sizeof(int), st);
   if (rc != cudaSuccess) return (int)rc;
   int err = launch<T, true>(r0, dir, rem, tri, counts, sv_width, voxel, n,
                             n0, n1, n2, k_pad, chunk, edge_tol, nullptr,
                             nullptr, step, scratch, st);
   if (err != 0) return err;
-  bounce_pass<T><<<bounce_blocks<T>(), kBounce, 0, st>>>(
+  const Scratch sc = carve(scratch, n, n_cells);
+  rc = cudaMemsetAsync(sc.fill, 0, sizeof(int) * n_cells, st);
+  if (rc != cudaSuccess) return (int)rc;
+  relist_cells<T><<<grid_for(n, 256), 256, 0, st>>>(
+      step, (const T*)sv_width, (const T*)voxel, n0, n1, n2, sc.fill,
+      sc.cell_of, sc.rank_of);
+  relist_scan<<<1, kScan, 0, st>>>(sc.fill, n_cells, sc.start, sc.tiles,
+                                   sc.n_tiles);
+  relist_scatter<<<grid_for(n, 256), 256, 0, st>>>(
+      step.list, step.n_list, sc.cell_of, sc.rank_of, sc.start, sc.perm);
+  later_pass<T><<<max_tiles(n, n_cells), kTile, 0, st>>>(
       step, (const T*)tri, (const int*)counts, (const T*)sv_width,
+      (const T*)voxel, n0, n1, n2, k_pad, edge_tol, sc.perm, sc.tiles,
+      sc.n_tiles);
+  StepState<T> rest = step;
+  rest.list = step.rest;
+  rest.n_list = step.n_rest;
+  bounce_pass<T><<<bounce_blocks<T>(), kBounce, 0, st>>>(
+      rest, (const T*)tri, (const int*)counts, (const T*)sv_width,
       (const T*)voxel, n0, n1, n2, k_pad, edge_tol);
   finish_pass<T><<<grid_for(n, 256), 256, 0, st>>>(step, n, (T*)out,
                                                    (uint8_t*)exc);

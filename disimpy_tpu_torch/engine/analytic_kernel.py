@@ -6,8 +6,10 @@ permeability, around) a sphere, an infinite cylinder along +x or an
 axis-aligned ellipsoid: it draws the step's direction, loops the spin's
 collisions to the end and returns the new positions, the iteration-budget
 flags and the membrane crossings, with the hand-written kernel
-``csrc/analytic_step.cu`` (one launch per step, one thread per spin, the
-whole bounce loop in the thread, no host sync). It takes CUDA tensors
+``csrc/analytic_step.cu`` (one launch per step, no host sync: one thread
+per spin draws its direction and runs its first collision check, and the
+spins that still collide are queued in the block's shared memory and
+carried to the end of the step one per thread). It takes CUDA tensors
 only; ``stepping.step`` sends CPU tensors to ``stepping.plain_step``, the
 plain torch bounce loop fed the draws of ``engine/rng.py``. There is no
 fallback from one to the other: a kernel that fails to build or launch

@@ -18,13 +18,15 @@ kernel after a transpose that the GPU does not need.
 
 ``mesh_step`` runs one whole classic mesh step on that layout: the step's
 directions (the draw kernel), the query above on the whole batch with the
-first bounce resolved in its epilogue, then K9 (``bounce_pass`` in the same
-source) carrying the spins that still collide through their later bounces,
-one warp per spin, and a tail that writes the positions: a fixed sequence
-of launches with no host sync. It takes CUDA tensors only. Its plain
-version, to which ``stepping.step`` sends CPU tensors, is
-``stepping.step_mesh``, the JAX package's ``step_mesh`` while-loop
-(``disimpy_tpu/engine/stepping.py:262-341``) as a Python loop.
+first bounce resolved in its epilogue, then K9 (in the same source): the
+spins that still collide sorted by the halo cell of their next segment,
+their second check on each cell's row staged in shared memory
+(``later_pass``), the few that collide again carried through their later
+bounces one warp per spin (``bounce_pass``), and a tail that writes the
+positions: a fixed sequence of launches with no host sync. It takes CUDA
+tensors only. Its plain version, to which ``stepping.step`` sends CPU
+tensors, is ``stepping.step_mesh``, the JAX package's ``step_mesh``
+while-loop (``disimpy_tpu/engine/stepping.py:262-341``) as a Python loop.
 """
 
 import ctypes
@@ -188,7 +190,8 @@ def mesh_step(spec, positions, epsilon, max_iter, seed, t, ids):
     ``t`` the step's draw keys (Python ints or 0-d int32 tensors on the
     device), ``ids`` the (n,) int32 spin ids. Returns ``(positions (3, n),
     exc (n,) bool, crossings (n,) int32)``: the draw kernel, K2's passes
-    with the first bounce resolved, K9, the tail.
+    with the first bounce resolved, K9 (the cell-sorted second check, then
+    the warp-per-spin remainder), the tail.
     """
     _check_halo(spec)
 
@@ -241,6 +244,7 @@ def mesh_step(spec, positions, epsilon, max_iter, seed, t, ids):
         raise RuntimeError(f"mesh step kernels failed to launch: CUDA error "
                            f"{rc}")
     launch_count.add("mesh_hit")
+    launch_count.add("mesh_later")
     launch_count.add("mesh_bounce")
     return out, exc, crossings
 
