@@ -33,8 +33,9 @@ Layout
 ``mesh_accel``
     The classic mesh table pack (host NumPy) and its gather query.
 ``mesh_kernel``
-    Nearest hit per spin on the halo layout, and one whole classic mesh
-    step on it: the CUDA kernels' bindings and their plain torch versions.
+    Nearest hit per spin on either mesh layout (K2 halo, K10 per-cell),
+    and one whole classic mesh step on it: the CUDA kernels' bindings and
+    their plain torch versions.
 ``fused``
     The fused mesh engine: the table pack (host NumPy), the epoch body and
     the window loop, which replays one captured CUDA graph per epoch.

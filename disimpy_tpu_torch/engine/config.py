@@ -34,8 +34,7 @@ bit for bit and serves to compare the two. CPU runs are always eager.
 ``classic_cuda_graph``: the same for the classic engine: when True (the
 default), a classic window on a CUDA device runs every step as a replay of
 one captured CUDA graph of ``engine/core.step_body``; False runs each step
-eagerly. The per-cell mesh layout's steps sync the host (its gather query
-keeps the plain bounce loop) and always run eagerly.
+eagerly. Both mesh layouts are graphed: neither's step reads anything back.
 """
 
 use_fused = None
@@ -64,17 +63,15 @@ def mesh_engine(dtype, needs_traj):
 def mesh_query_backend(spec, dtype, device):
     """Resolve the classic engine's nearest-hit query: "kernel" or "gather".
 
-    "kernel" (``engine/mesh_kernel.py``, the CUDA kernel) for the halo
-    layout (``spans == (1, 1, 1)``) on a CUDA device, in float32 and
-    float64; "gather" (``engine/mesh_accel.nearest_hit``) for the per-cell
-    layout on any device and for every CPU tensor. The choice follows the
-    layout and the device alone.
+    "kernel" (``engine/mesh_kernel.py``: K2 for the halo layout, K10 for
+    the per-cell layout) on a CUDA device, in float32 and float64;
+    "gather" (``engine/mesh_accel.nearest_hit``) for every CPU tensor. The
+    choice follows the device alone.
     """
     import torch
 
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the mesh query runs in float32 or float64, not {dtype}")
-    halo = tuple(spec.spans) == (1, 1, 1)
-    if halo and torch.device(device).type == "cuda":
+    if torch.device(device).type == "cuda":
         return "kernel"
     return "gather"

@@ -131,9 +131,8 @@ def step_body(kind, spec, st, max_iter, blocks=1):
     of a sweep), iter_exc ``|=``, the exchange trackers (parity flips on
     odd transits; the spin dwells the whole step in the compartment it ends
     it in), the trajectory row; then the positions, and the scalars and the
-    step index advance. Nothing here syncs the host on CUDA (for the
-    per-cell mesh layout the plain bounce loop does), so one call can be
-    captured into a CUDA graph and replayed.
+    step index advance. Nothing here syncs the host on CUDA, so one call
+    can be captured into a CUDA graph and replayed.
     """
     positions, exc, cross = stepping.step(
         kind, st.positions, spec, st.epsilon, max_iter, st.scalars[0],
@@ -216,9 +215,8 @@ def run_window(kind, spec, positions, phases, iter_exc, g_eff, ts, seed32,
     ``config.classic_cuda_graph`` (the default) each step is a replay of
     one captured CUDA graph, kept per (spec, window shape) for the spec's
     ``graphs.GRAPHS_PER_SPEC`` most recent shapes, so no Python runs
-    between the steps' kernels and nothing is read back within the window
-    (the per-cell mesh layout's steps run eagerly: their plain bounce loop
-    syncs). Otherwise, and on the CPU, every step runs eagerly. Both give
+    between the steps' kernels and nothing is read back within the window.
+    Otherwise, and on the CPU, every step runs eagerly. Both give
     the same values bit for bit. The arguments are not modified.
 
     Returns
@@ -253,7 +251,7 @@ def run_window(kind, spec, positions, phases, iter_exc, g_eff, ts, seed32,
                                  len(ts) if collect_positions else None)
 
     graphed = (device.type == "cuda" and config.classic_cuda_graph
-               and len(ts) > 0 and not stepping.syncs_host(kind, spec))
+               and len(ts) > 0)
     if graphed:
         eps_key = (tuple(epsilon.shape) if isinstance(epsilon, torch.Tensor)
                    else float(epsilon))

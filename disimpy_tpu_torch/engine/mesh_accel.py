@@ -11,9 +11,9 @@ wrapped into the voxel with a whole-voxel shift, and the spin is tested
 against the wrapped subvoxel's triangles at its shifted position.
 
 The pack is the JAX package's NumPy code unchanged, so both give the same
-arrays. :func:`nearest_hit` is the plain torch query: it serves the CPU,
-and on the GPU the per-cell layout, which the kernel of
-``engine/mesh_kernel.py`` does not take.
+arrays. :func:`nearest_hit` is the plain torch query: it serves the CPU
+and is the plain version of the CUDA kernels of ``engine/mesh_kernel.py``
+(K2 on the halo layout, K10 on the per-cell layout).
 """
 
 import math

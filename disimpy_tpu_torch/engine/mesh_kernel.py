@@ -1,32 +1,40 @@
-"""Nearest forward triangle hit per spin: CUDA kernel and plain version.
+"""Nearest forward triangle hit per spin: CUDA kernels and plain version.
 
 ``nearest_hit`` answers, for every spin, the classic mesh engine's
-collision query on a halo-layout :class:`MeshSpec` (``spans == (1, 1,
-1)``): the closest strictly-forward Moller-Trumbore hit along ``r0 + s *
-direction``, ``s`` in ``(0, rem]`` being the caller's concern, among the
-records of the spin's halo cell. A CUDA tensor goes to the hand-written
-kernel ``csrc/mesh_hit.cu`` (float32 or float64): it groups the spins by
-cell into tiles of at most 128, stages each tile's row in shared memory,
-and splits a block's 128 threads among the tile's spins, up to 32 lanes
-per spin, reducing by (distance, record). A CPU tensor goes to
-:func:`nearest_hit_reference`, the same arithmetic as plain torch. There
-is no fallback from one to the other.
+collision query on a :class:`MeshSpec`: the closest strictly-forward
+Moller-Trumbore hit along ``r0 + s * direction``, ``s`` in ``(0, rem]``
+being the caller's concern. A CPU tensor goes to
+:func:`nearest_hit_reference`, the gather query of ``mesh_accel`` as plain
+torch; a CUDA tensor goes to a hand-written kernel of ``csrc/mesh_hit.cu``
+(float32 or float64), by layout. There is no fallback from one to the
+other.
 
-The kernel is the counterpart of the JAX package's Pallas kernel
-``engine/pallas_mesh.py::_kernel``; both read the same table, the Pallas
-kernel after a transpose that the GPU does not need.
+- The halo layout (``spans == (1, 1, 1)``): K2 tests the records of the
+  spin's halo cell. It groups the spins by cell into tiles of at most 128,
+  stages each tile's row in shared memory, and splits a block's 128
+  threads among the tile's spins, up to 32 lanes per spin, reducing by
+  (distance, record). It is the counterpart of the JAX package's Pallas
+  kernel ``engine/pallas_mesh.py::_kernel``; both read the same table, the
+  Pallas kernel after a transpose that the GPU does not need.
+- The per-cell layout: K10 scans the stencil of ``spans`` cells that the
+  segment's bounding box overlaps, each wrapped into the voxel and tested
+  at the spin's shifted position, as the JAX package's XLA stencil query
+  ``engine/mesh_accel.nearest_hit`` does; up to 32 lanes per spin over
+  the whole batch, reducing by (distance, cell, record).
 
-``mesh_step`` runs one whole classic mesh step on that layout: the step's
-directions (the draw kernel), the query above on the whole batch with the
-first bounce resolved in its epilogue, then K9 (in the same source): the
-spins that still collide sorted by the halo cell of their next segment,
-their second check on each cell's row staged in shared memory
-(``later_pass``), the few that collide again carried through their later
-bounces one warp per spin (``bounce_pass``), and a tail that writes the
-positions: a fixed sequence of launches with no host sync. It takes CUDA
-tensors only. Its plain version, to which ``stepping.step`` sends CPU
-tensors, is ``stepping.step_mesh``, the JAX package's ``step_mesh``
-while-loop (``disimpy_tpu/engine/stepping.py:262-341``) as a Python loop.
+``mesh_step`` runs one whole classic mesh step on the card, a fixed
+sequence of launches with no host sync. Halo layout: the step's directions
+(the draw kernel), K2 on the whole batch with the first bounce resolved in
+its epilogue, then K9: the spins that still collide sorted by the halo
+cell of their next segment, their second check on each cell's row staged
+in shared memory (``later_pass``), the few that collide again carried
+through their later bounces one warp per spin (``bounce_pass``), and a
+tail that writes the positions. Per-cell layout: the directions, K10 with
+the first bounce resolved, ``bounce_pass`` over the stencil for every
+spin K10 lists, and the tail. It takes CUDA tensors only. Its plain
+version, to which ``stepping.step`` sends CPU tensors, is
+``stepping.step_mesh``, the JAX package's ``step_mesh`` while-loop
+(``disimpy_tpu/engine/stepping.py:262-341``) as a Python loop.
 """
 
 import ctypes
@@ -50,14 +58,16 @@ _SYMBOLS = {torch.float32: "mesh_hit_launch_f32",
             torch.float64: "mesh_hit_launch_f64"}
 _STEP_SYMBOLS = {torch.float32: "mesh_step_launch_f32",
                  torch.float64: "mesh_step_launch_f64"}
+# K10, the per-cell layout's query and step.
+_CELL_SYMBOLS = {torch.float32: "mesh_cell_launch_f32",
+                 torch.float64: "mesh_cell_launch_f64"}
+_CELL_STEP_SYMBOLS = {torch.float32: "mesh_cell_step_launch_f32",
+                      torch.float64: "mesh_cell_step_launch_f64"}
 
 
-def _check_halo(spec):
-    if tuple(spec.spans) != (1, 1, 1):
-        raise ValueError(
-            "mesh_kernel.nearest_hit takes the halo layout (spans (1, 1, 1)); "
-            f"this spec has spans {spec.spans}"
-        )
+def is_halo(spec):
+    """Whether ``spec`` has the halo layout (one row per query)."""
+    return tuple(spec.spans) == (1, 1, 1)
 
 
 def halo_cells(spec, r0, direction, rem):
@@ -80,15 +90,16 @@ def halo_cells(spec, r0, direction, rem):
 
 
 def nearest_hit(spec, r0, direction, rem):
-    """Closest forward hit per spin in its halo cell.
+    """Closest forward hit per spin: in its halo cell (halo layout) or in
+    the cells its segment's bounding box overlaps (per-cell layout).
 
     ``r0``, ``direction`` (n, 3) and ``rem`` (n,) are contiguous tensors
     in the spec's dtype on the spec's device. Returns ``(min_d (n,),
     normal (n, 3))``: ``inf`` and a zero normal where nothing is hit;
-    equal distances resolve to the lowest record of the row; the normal's
-    sign is unoriented.
+    equal distances resolve to the lowest record of the row (per-cell:
+    of the first cell in the stencil's order); the normal's sign is
+    unoriented.
     """
-    _check_halo(spec)
     kind = r0.device.type
     if kind == "cpu":
         return nearest_hit_reference(spec, r0, direction, rem)
@@ -110,6 +121,8 @@ def _check(name, t, dtype, shape, device):
 
 def _check_spec(spec, device):
     """The spec's table geometry: (dtype, n_cells, k_pad, chunk)."""
+    if min(spec.spans) < 1:
+        raise ValueError(f"spec.spans {spec.spans} must be positive")
     dtype = spec.tri.dtype
     if dtype not in _SYMBOLS:
         raise ValueError(f"the mesh_hit kernel takes float32 or float64, "
@@ -149,6 +162,15 @@ def _lib():
                        + [ctypes.c_void_p] * 5 + [ctypes.c_int]
                        + [ctypes.c_void_p] * 9)
         fn.restype = ctypes.c_int
+        fn = getattr(lib, _CELL_SYMBOLS[dtype])
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [real]
+                       + [ctypes.c_void_p] * 3)
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, _CELL_STEP_SYMBOLS[dtype])
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [real]
+                       + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 9)
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -164,37 +186,44 @@ def _nearest_hit_cuda(spec, r0, direction, rem):
     if n == 0:
         return min_d, normal
     lib = _lib()
-    scratch = torch.empty((lib.mesh_hit_scratch_words(n, n_cells),),
-                          dtype=torch.int32, device=device)
+    table = (r0.data_ptr(), direction.data_ptr(), rem.data_ptr(),
+             spec.tri.data_ptr(), spec.cell_counts.data_ptr(),
+             spec.sv_width.data_ptr(), spec.voxel_size.data_ptr(), n,
+             *spec.n_sv)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, _SYMBOLS[dtype])(
-            r0.data_ptr(), direction.data_ptr(), rem.data_ptr(),
-            spec.tri.data_ptr(), spec.cell_counts.data_ptr(),
-            spec.sv_width.data_ptr(), spec.voxel_size.data_ptr(),
-            n, *spec.n_sv, k_pad, chunk, EDGE_TOL[dtype],
-            min_d.data_ptr(), normal.data_ptr(), scratch.data_ptr(), stream,
-        )
+        if is_halo(spec):
+            name = "mesh_hit"
+            scratch = torch.empty((lib.mesh_hit_scratch_words(n, n_cells),),
+                                  dtype=torch.int32, device=device)
+            rc = getattr(lib, _SYMBOLS[dtype])(
+                *table, k_pad, chunk, EDGE_TOL[dtype], min_d.data_ptr(),
+                normal.data_ptr(), scratch.data_ptr(), stream)
+        else:
+            name = "mesh_cell"
+            rc = getattr(lib, _CELL_SYMBOLS[dtype])(
+                *table, *spec.spans, k_pad, EDGE_TOL[dtype],
+                min_d.data_ptr(), normal.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"mesh_hit kernel launch failed: CUDA error {rc}")
-    launch_count.add("mesh_hit")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    launch_count.add(name)
     return min_d, normal
 
 
 def mesh_step(spec, positions, epsilon, max_iter, seed, t, ids):
-    """One classic mesh step on a halo-layout :class:`MeshSpec`, on the
-    card.
+    """One classic mesh step on a :class:`MeshSpec` of either layout, on
+    the card.
 
     ``positions`` (3, n) in step-length units in the spec's dtype on its
     CUDA device, ``epsilon`` a float or a one-value tensor, ``seed`` and
     ``t`` the step's draw keys (Python ints or 0-d int32 tensors on the
     device), ``ids`` the (n,) int32 spin ids. Returns ``(positions (3, n),
-    exc (n,) bool, crossings (n,) int32)``: the draw kernel, K2's passes
-    with the first bounce resolved, K9 (the cell-sorted second check, then
-    the warp-per-spin remainder), the tail.
+    exc (n,) bool, crossings (n,) int32)``: the draw kernel, then on the
+    halo layout K2's passes with the first bounce resolved and K9 (the
+    cell-sorted second check, then the warp-per-spin remainder), on the
+    per-cell layout K10 with the first bounce resolved and the remainder
+    over the stencil; the tail.
     """
-    _check_halo(spec)
-
     device = positions.device
     if device.type != "cuda":
         raise ValueError(f"the mesh step kernels take CUDA tensors, not "
@@ -224,15 +253,24 @@ def mesh_step(spec, positions, epsilon, max_iter, seed, t, ids):
     if n == 0:
         return out, exc, crossings
     lib = _lib()
-    scratch = torch.empty((lib.mesh_step_scratch_words(n, n_cells),),
-                          dtype=torch.int32, device=device)
+    if is_halo(spec):
+        symbol, kernels = _STEP_SYMBOLS[dtype], ("mesh_hit", "mesh_later",
+                                                 "mesh_bounce")
+        layout = (k_pad, chunk)
+        words = lib.mesh_step_scratch_words(n, n_cells)
+    else:
+        symbol, kernels = _CELL_STEP_SYMBOLS[dtype], ("mesh_cell",
+                                                      "mesh_bounce")
+        layout = (*spec.spans, k_pad)
+        words = n + 4
+    scratch = torch.empty((words,), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         (p_seed, p_t), keep = draw_kernel.scalar_ptrs(device, seed, t)
-        rc = getattr(lib, _STEP_SYMBOLS[dtype])(
+        rc = getattr(lib, symbol)(
             r0.data_ptr(), direction.data_ptr(), rem.data_ptr(),
             spec.tri.data_ptr(), spec.cell_counts.data_ptr(),
             spec.sv_width.data_ptr(), spec.voxel_size.data_ptr(),
-            n, *spec.n_sv, k_pad, chunk, EDGE_TOL[dtype],
+            n, *spec.n_sv, *layout, EDGE_TOL[dtype],
             ids.data_ptr(), p_seed, p_t, perm.data_ptr(), eps.data_ptr(),
             int(max_iter), s_r0.data_ptr(), s_dir.data_ptr(),
             s_rem.data_ptr(), iters.data_ptr(), crossings.data_ptr(),
@@ -243,19 +281,17 @@ def mesh_step(spec, positions, epsilon, max_iter, seed, t, ids):
     if rc != 0:
         raise RuntimeError(f"mesh step kernels failed to launch: CUDA error "
                            f"{rc}")
-    launch_count.add("mesh_hit")
-    launch_count.add("mesh_later")
-    launch_count.add("mesh_bounce")
+    for name in kernels:
+        launch_count.add(name)
     return out, exc, crossings
 
 
 def nearest_hit_reference(spec, r0, direction, rem):
     """Plain-torch version of :func:`nearest_hit` (same arguments and
-    returns): ``mesh_accel.nearest_hit`` on the halo layout with the
-    dtype's edge tolerance. One Moller-Trumbore test per record of the
-    spin's row (padding records have det = 0 and never hit); the first
-    minimum along the row wins.
+    returns): ``mesh_accel.nearest_hit`` with the dtype's edge tolerance.
+    One Moller-Trumbore test per record of each visited row (padding
+    records have det = 0 and never hit); the first minimum in the visiting
+    order wins.
     """
-    _check_halo(spec)
     return mesh_accel.nearest_hit(spec, r0, direction, rem,
                                   edge_tol=EDGE_TOL[spec.tri.dtype])

@@ -18,10 +18,10 @@ still colliding; each pass reads one flag back from the device.
 :func:`step` is what the classic window (``engine/core.py``) calls: it
 draws from the id-keyed streams and, on a CUDA device, runs the step as
 kernels with no host read-back: K8 (``engine/analytic_kernel.py``) for the
-analytic substrates, the mesh step of ``engine/mesh_kernel.py`` (K2's
-passes, then K9) for the halo mesh layout. Free diffusion is the draw
-kernel and one add. The per-cell mesh layout keeps the gather query and
-its plain loop on every device, as the JAX package keeps XLA there.
+analytic substrates, the mesh step of ``engine/mesh_kernel.py`` for both
+mesh layouts (K2's passes, then K9, on the halo layout; K10, then K9's
+remainder over the stencil, on the per-cell layout). Free diffusion is the
+draw kernel and one add.
 
 ``iter_exc`` semantics: a spin is flagged when it has entered the
 collision check ``max_iter`` times, and the driver excludes flagged spins
@@ -37,10 +37,10 @@ from .specs import CylinderSpec, EllipsoidSpec, FreeSpec, MeshSpec, SphereSpec
 def _make_mesh_query(spec, dtype, device):
     """``query(r0, direction, rem) -> (min_d, normal)`` on (n, 3) tensors.
 
-    The CUDA kernel serves the halo layout on the GPU; the gather query of
-    ``mesh_accel`` serves the per-cell layout and every CPU tensor. The
-    triangle test is widened by a barycentric tolerance scaled to the
-    dtype's rounding error, so adjacent triangles overlap rather than gap.
+    The CUDA kernels serve both layouts on the GPU; the gather query of
+    ``mesh_accel`` serves every CPU tensor. The triangle test is widened
+    by a barycentric tolerance scaled to the dtype's rounding error, so
+    adjacent triangles overlap rather than gap.
     """
     if config.mesh_query_backend(spec, dtype, device) == "kernel":
         return lambda r0, direction, rem: mesh_kernel.nearest_hit(
@@ -300,25 +300,19 @@ STEP_FUNCTIONS = {
 }
 
 
-def syncs_host(kind, spec):
-    """Whether :func:`step` reads back from the device on CUDA: only the
-    per-cell mesh layout's plain loop does."""
-    return kind == "mesh" and tuple(spec.spans) != (1, 1, 1)
-
-
 def step(kind, positions, spec, epsilon, max_iter, seed_k, t, ids):
     """One classic time step of ``kind`` with the id-keyed draws of step
     ``t`` (``seed_k`` and ``t`` Python ints or 0-d int32 tensors on the
     ids' device). Returns ``(positions (3, n), exc (n,), crossings (n,))``.
 
-    On CUDA tensors the analytic substrates go to K8 and the halo mesh
-    layout to the mesh step kernels. CPU tensors, free diffusion and the
-    per-cell mesh layout run :func:`plain_step`.
+    On CUDA tensors the analytic substrates go to K8 and both mesh layouts
+    to the mesh step kernels. CPU tensors and free diffusion run
+    :func:`plain_step`.
     """
     if positions.is_cuda and kind in analytic_kernel.KINDS:
         return analytic_kernel.analytic_step(
             kind, positions, spec, epsilon, max_iter, seed_k, t, ids)
-    if positions.is_cuda and kind == "mesh" and not syncs_host(kind, spec):
+    if positions.is_cuda and kind == "mesh":
         return mesh_kernel.mesh_step(spec, positions, epsilon, max_iter,
                                      seed_k, t, ids)
     return plain_step(kind, positions, spec, epsilon, max_iter, seed_k, t,

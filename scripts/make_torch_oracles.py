@@ -49,12 +49,18 @@ prefixed by the run it comes from:
 - ``query_pallas_*``: the Pallas nearest-hit kernel
   (``pallas_mesh.nearest_hit_pallas`` in interpret mode) on the 700-spin
   icosphere query of ``tests/test_torch_classic.py`` (``RandomState(1)``):
-  distances and normals.
+  distances and normals;
+- ``percell_*``: ``simulation`` through the classic engine on the periodic
+  closed cylinder (n_sv 10^3, "intra" starts) packed in the per-cell
+  layout (``mesh_accel.HALO_BYTES_LIMIT = 0``), float64, 1,024 spins x 40
+  steps of a 4-b PGSE gradient (seed 7, ``all_signals=True``): per-spin
+  signals and final positions (``tests/test_torch_percell.py``).
 
 The inputs are rebuilt the same way by ``tests/test_torch_exchange.py``,
 ``tests/test_torch_sweeps.py``, ``tests/test_torch_nonperiodic.py``,
 ``tests/test_torch_fused.py``, ``tests/test_torch_simulation.py``,
-``tests/test_torch_knobs.py`` and ``tests/test_torch_classic.py``;
+``tests/test_torch_knobs.py``, ``tests/test_torch_classic.py`` and
+``tests/test_torch_percell.py``;
 rerun this script when the JAX package or those setups change.
 """
 
@@ -109,6 +115,9 @@ EPOCH_STEP = float(np.sqrt(6 * D * 1.2e-4))
 KNOBS = {"J2": (2, None), "w2": (4, 2.0)}
 # The nearest-hit query (tests/test_torch_classic.py).
 QUERY_SPINS, QUERY_STEP = 700, float(np.sqrt(6 * D * 8e-5))
+# The per-cell layout's whole run (tests/test_torch_percell.py).
+PERCELL_SPINS, PERCELL_STEPS, PERCELL_SEED = 1024, 40, 7
+PERCELL_BVALS = np.array([0.0, 1e9, 2e9, 4e9])
 
 
 def nonperiodic_cylinder(mod, mesh, init_pos="intra"):
@@ -284,6 +293,30 @@ def query_run():
     return dict(query_pallas_d=d, query_pallas_n=normal)
 
 
+def percell_gradient():
+    """The per-cell run's PGSE gradient (delta 1 ms, Delta 2 ms, along x)."""
+    return gradients.pgse(1e-3, 2e-3, PERCELL_STEPS, PERCELL_BVALS,
+                          np.tile([1.0, 0.0, 0.0], (len(PERCELL_BVALS), 1)))
+
+
+def percell_run(mesh):
+    """The classic engine on the periodic closed cylinder's per-cell pack
+    (the halo table limited away), float64."""
+    gradient, dt = percell_gradient()
+    limit = mesh_accel.HALO_BYTES_LIMIT
+    try:
+        mesh_accel.HALO_BYTES_LIMIT = 0
+        sub = substrates.mesh(mesh["vertices"], mesh["faces"], True,
+                              init_pos="intra", n_sv=np.array([10, 10, 10]),
+                              quiet=True)
+        signals, pos = simulations.simulation(
+            PERCELL_SPINS, D, gradient, dt, sub, seed=PERCELL_SEED,
+            dtype="float64", all_signals=True, final_pos=True, quiet=True)
+    finally:
+        mesh_accel.HALO_BYTES_LIMIT = limit
+    return dict(percell_signals=signals, percell_pos=pos)
+
+
 def fused_gradient():
     """The 4-b PGSE gradient of tests/test_torch_simulation.py."""
     bs = np.linspace(1, 3e9, 4)
@@ -349,6 +382,7 @@ def main():
     out.update(epoch_run(mesh))
     out.update(simulation_runs(mesh, start))
     out.update(query_run())
+    out.update(percell_run(mesh))
 
     with open(ROOT / "tests" / "oracles" / "neuron-model.pkl", "rb") as f:
         neuron = pickle.load(f)

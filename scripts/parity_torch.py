@@ -123,8 +123,8 @@ def _watch():
 
     def classic_note(spec):
         info["classic_layout"] = (
-            "halo (mesh step kernels)" if tuple(spec.spans) == (1, 1, 1)
-            else "per-cell (gather query)")
+            "halo (K2, K9)" if tuple(spec.spans) == (1, 1, 1)
+            else "per-cell (K10, K9's remainder)")
 
     wrapped = {
         "_fused_spec": timed("_fused_spec", "fused_pack_s", fused_note),
@@ -244,9 +244,10 @@ class Parity:
         return runs
 
     def mesh(self, periodic=MESH_PERIODIC, padding=MESH_PADDING,
-             n_svs=MESH_NSV):
+             n_svs=MESH_NSV, dtype="float32"):
         """The closed cylinder mesh against MISST over the given periodic,
-        padding and n_sv values, each run with its radial leak check.
+        padding and n_sv values, each run with its radial leak check
+        (``dtype`` "float64" runs the classic engine).
         Returns {key: (signals, final positions)}, and records in the meta
         how far apart each (periodic, padding) pair's n_sv runs lie."""
         with open(ORACLES / "cylinder_mesh_closed.pkl", "rb") as f:
@@ -268,7 +269,7 @@ class Parity:
                         n_sv=np.array(n_sv), quiet=True,
                     )
                     (s, pos), run = self.simulate(n, D, g, dt, sub,
-                                                  final_pos=True)
+                                                  final_pos=True, dtype=dtype)
                     key = mesh_key(p, pad, n_sv)
                     self.record(key, np.abs(s / n - misst).max(),
                                 MISST_THRESHOLD, run)

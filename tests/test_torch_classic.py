@@ -244,10 +244,21 @@ def test_query_backend_and_kernel_layout_checks(icospheres, monkeypatch):
         config.mesh_query_backend(halo, torch.float16, "cuda")
     monkeypatch.setattr(mesh_accel, "HALO_BYTES_LIMIT", 0)
     per_cell = mesh_accel.pack_mesh(sub, 1 / STEP_L, torch.float32)
-    assert config.mesh_query_backend(per_cell, torch.float32, "cuda") == "gather"
+    # The per-cell layout has its kernel (K10) on the card; a CPU tensor
+    # runs the gather query on either layout.
+    assert config.mesh_query_backend(per_cell, torch.float32, "cuda") == "kernel"
+    assert config.mesh_query_backend(per_cell, torch.float32, "cpu") == "gather"
     x = torch.zeros((4, 3))
-    with pytest.raises(ValueError, match="halo layout"):
-        mesh_kernel.nearest_hit(per_cell, x, x, torch.ones(4))
+    up = torch.tensor([[0.0, 0.0, 1.0]] * 4)
+    got = mesh_kernel.nearest_hit(per_cell, x, up, torch.ones(4))
+    want = mesh_accel.nearest_hit(per_cell, x, up, torch.ones(4),
+                                  edge_tol=1e-5)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="positive"):
+        mesh_kernel._check_spec(
+            specs.MeshSpec(**{**per_cell.__dict__, "spans": (0, 1, 1)}),
+            torch.device("cpu"))
     with pytest.raises(ValueError, match="cpu or cuda"):
         mesh_kernel.nearest_hit(halo, x.to("meta"), x.to("meta"),
                                 torch.ones(4, device="meta"))

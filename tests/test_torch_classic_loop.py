@@ -28,7 +28,7 @@ import pytest
 import torch
 
 from disimpy_tpu_torch import meshes, simulations, substrates
-from disimpy_tpu_torch.engine import (analytic_kernel, core, krng,
+from disimpy_tpu_torch.engine import (analytic_kernel, config, core, krng,
                                       launch_count, mesh_accel, mesh_kernel,
                                       rng, specs, stepping)
 
@@ -291,7 +291,12 @@ def test_kernel_entry_points_refuse_cpu_tensors(icosphere):
     spec, pos, eps = _case("mesh", 0.0, icosphere, n=8)
     with pytest.raises(ValueError):
         mesh_kernel.mesh_step(spec, pos, eps, 10, 1, 0, ids)
-    # The per-cell layout keeps its host-synced plain loop on every device.
-    assert not stepping.syncs_host("mesh", spec)
+    # No step syncs the host on CUDA, the per-cell layout's included: both
+    # layouts have their kernels there (K2 and K9; K10 and K9's remainder),
+    # which take CUDA tensors only; the CPU runs the plain loops.
     per_cell = specs.MeshSpec(**{**spec.__dict__, "spans": (3, 3, 3)})
-    assert stepping.syncs_host("mesh", per_cell)
+    for s in (spec, per_cell):
+        assert config.mesh_query_backend(s, torch.float32, "cuda") == "kernel"
+        assert config.mesh_query_backend(s, torch.float32, "cpu") == "gather"
+    with pytest.raises(ValueError):
+        mesh_kernel.mesh_step(per_cell, pos, eps, 10, 1, 0, ids)
