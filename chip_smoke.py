@@ -2715,10 +2715,16 @@ def _classify_check(label, sub, n, step_l=None):
     return walls["cuda"], walls["cpu"], differ
 
 
-CLASSIC_KERNELS = {"analytic_step": "analytic_step_kernel",
-                   "mesh_hit": "hit_pass", "mesh_later": "later_pass",
-                   "mesh_bounce": "bounce_pass", "mesh_cell": "stencil_pass",
-                   "krng_draw": "directions_kernel"}
+# The kernels each counted launch runs (engine/launch_count): the profiler
+# must see each of them as often as the launch is counted.
+CLASSIC_KERNELS = {"analytic_step": ("analytic_step_kernel",),
+                   "mesh_hit": ("hit_pass",), "mesh_later": ("later_pass",),
+                   "mesh_bounce": ("bounce_pass",),
+                   "mesh_cell": ("stencil_cells", "stencil_sums",
+                                 "stencil_scan", "stencil_scatter",
+                                 "stencil_pass"),
+                   "mesh_cell_later": ("stencil_recheck",),
+                   "krng_draw": ("directions_kernel",)}
 
 
 def _device_ms(detail, part):
@@ -2762,9 +2768,9 @@ def _classic_graph_vs_eager(label, sim, profiled=False):
                 busy, wall_ms, events, top, names, detail = _busy_share(
                     lambda: sim(2), origins=not graphed)
                 run.update(busy=busy / wall_ms, events=events, top=top,
-                           seen={k: sum(c for nm, c in names.items()
-                                        if v in nm)
-                                 for k, v in CLASSIC_KERNELS.items()},
+                           seen={k: [sum(c for nm, c in names.items()
+                                         if v in nm) for v in vs]
+                                 for k, vs in CLASSIC_KERNELS.items()},
                            counted=dict(launch_count.counts),
                            busy_ms=busy, wall_ms=wall_ms, detail=detail)
             out[graphed] = run
@@ -2796,7 +2802,8 @@ def _classic_graph_vs_eager(label, sim, profiled=False):
     profile = {}
     if profiled:
         for r in (g, e):
-            if r["seen"] != {k: r["counted"][k] for k in r["seen"]}:
+            if any(c != r["counted"][k] for k, cs in r["seen"].items()
+                   for c in cs):
                 raise AssertionError(
                     f"classic graph vs eager ({label}): counted "
                     f"{r['counted']}, the profiler saw {r['seen']}")
@@ -2804,8 +2811,12 @@ def _classic_graph_vs_eager(label, sim, profiled=False):
         # phase product's device time per launch; from the eager run, the
         # operators that launched the kernels with the most device time.
         parts = {"K8": "analytic_step_kernel", "K2": "hit_pass",
-                 "K10": "stencil_pass", "K9 staged": "later_pass",
-                 "K9 remainder": "bounce_pass", "phase product": "gemm"}
+                 "K10 sort": "stencil_cells", "K10 sums": "stencil_sums",
+                 "K10 offsets": "stencil_scan",
+                 "K10 scatter": "stencil_scatter", "K10": "stencil_pass",
+                 "K10 second check": "stencil_recheck",
+                 "K9 staged": "later_pass", "K9 remainder": "bounce_pass",
+                 "phase product": "gemm"}
         for key, part in parts.items():
             ms, c = _device_ms(g["detail"], part)
             if c:
@@ -2991,9 +3002,14 @@ PERCELL_GRID = (16, 16)
 # largest gap seen between K2 and the gather query on an H100 (the record
 # test's FMA contraction), which K10 shares.
 PERCELL_D_BOUND = {torch.float32: 7.63e-6, torch.float64: 1.42e-14}
-# The kernels of the per-cell step (csrc/mesh_hit.cu): K10 with the first
-# bounce resolved, K9's remainder over the stencil, the tail.
-PERCELL_KERNELS = ("stencil_pass", "bounce_pass", "finish_pass")
+# The kernels of the per-cell step (csrc/mesh_hit.cu): K10's sort (key,
+# the two passes of offsets and tiles, scatter) and first pass with the
+# first bounce resolved, the second check, K9's remainder over the
+# stencil, the tail.
+PERCELL_SORT = ("stencil_cells", "stencil_sums", "stencil_scan",
+                "stencil_scatter")
+PERCELL_KERNELS = PERCELL_SORT + ("stencil_pass", "stencil_recheck",
+                                  "bounce_pass", "finish_pass")
 
 
 def percell_bundle():
@@ -3112,14 +3128,16 @@ def _percell_query_check(label, spec, pos, g):
 
 def _percell_step_check(label, spec, pos, eps, steps=1, max_iter=1000,
                         timed=False):
-    """The per-cell mesh step (``mesh_kernel.mesh_step``: K7, K10 with the
-    first bounce resolved, K9's remainder over the stencil, the tail)
-    against the plain loop fed K10's query, ``steps`` chained steps from
-    ``pos``: positions, exc and crossings bit for bit on every spin. One
-    step also against the plain loop on the gather query (as phase 19:
-    at most MAX_STEP_APART of the spins more than GATHER_APART apart), and
-    with ``timed`` the step's and its kernels' times, the plain loop's
-    time per step and the bounds. Returns the record."""
+    """The per-cell mesh step (``mesh_kernel.mesh_step``: K7, K10's sort
+    and first pass with the first bounce resolved, the second check, K9's
+    remainder over the stencil, the tail) against the plain loop fed K10's
+    query, ``steps`` chained steps from ``pos``: positions, exc and
+    crossings bit for bit on every spin, and the lengths of the last step's
+    two lists (the spins that reach a second check and a third). One step
+    also against the plain loop on the gather query (as phase 19: at most
+    MAX_STEP_APART of the spins more than GATHER_APART apart), and with
+    ``timed`` the step's and its kernels' times, the plain loop's time per
+    step and the bounds. Returns the record."""
     from disimpy_tpu_torch.engine import draw_kernel, mesh_kernel, rng
 
     n = pos.shape[1]
@@ -3142,14 +3160,18 @@ def _percell_step_check(label, spec, pos, eps, steps=1, max_iter=1000,
     k_out, p_out = (pos,), (pos,)
     exc = crossings = 0
     for s in range(steps):
-        k_out = kernel(t=t0 + s, p=k_out[0])
+        last = k_out[0]
+        k_out = kernel(t=t0 + s, p=last)
         p_out = plain(t=t0 + s, p=p_out[0])
         exc += int(k_out[1].sum())
         crossings += int(k_out[2].sum())
     differ, _, err = compare(k_out, p_out)
+    # The last step's lists: the spins whose walk reaches check 2 and 3.
+    lists = [int(kernel(k, t=t0 + steps - 1, p=last)[1].sum())
+             for k in (2, 3)]
     ok = differ == 0 and (max_iter == 1000 or exc > 0)
     record = dict(label=label, n=n, steps=steps, differ=differ,
-                  max_abs_err=err, exc=exc, crossings=crossings)
+                  max_abs_err=err, exc=exc, crossings=crossings, lists=lists)
     detail = ""
     if steps == 1:
         limit = GATHER_APART[dtype]
@@ -3171,9 +3193,11 @@ def _percell_step_check(label, spec, pos, eps, steps=1, max_iter=1000,
     if timed:
         by_k = _checks_by_k(kernel, max_iter)
         listed = by_k[1] if len(by_k) > 1 else 0
+        again = by_k[2] if len(by_k) > 2 else 0
         ms = _graph_ms(kernel, 20)
         times = _kernel_device_ms(lambda: kernel(), PERCELL_KERNELS
                                   + ("directions_kernel",))
+        sort_ms = sum(times[k] for k in PERCELL_SORT)
         plain_ms, _ = _cuda_ms(lambda: plain(query="gather"), 3)
         first_plain_ms, _ = _cuda_ms(lambda: plain(1, "gather"), 3)
         # K10 (the first pass, its resolve included): the rows it visits
@@ -3189,37 +3213,74 @@ def _percell_step_check(label, spec, pos, eps, steps=1, max_iter=1000,
         k10_bytes = (int(spec.cell_counts[rows].sum()) * 12 * size
                      + rows.numel() * 4 + n * (14 * size + 12) + listed * 4)
         k10_bound, k10_by = bound(k10_bytes, tests * 52, name)
-        # The remainder and the tail, counted from the plain loop's later
-        # queries on these inputs (phase 19's rule for K9).
-        later = _later_queries(lambda: plain(), _stencil_cells)[1:]
-        later_tests = sum(int(spec.cell_counts[c].sum()) for c in later)
-        later_rows = (torch.unique(torch.cat(later)) if later else
-                      torch.zeros(0, dtype=torch.long, device="cuda"))
-        rest_bytes = (int(spec.cell_counts[later_rows].sum()) * 12 * size
-                      + listed * (14 * size + 20) + n * (10 * size + 5))
-        rest_bound, rest_by = bound(rest_bytes, later_tests * 52, name)
+        # The later checks, counted from the plain loop's later queries on
+        # these inputs (phase 19's rule for K9): the first is the second
+        # check of every listed spin (one compacted pass holds them all),
+        # the rest the remainder's. The second check reads and writes the
+        # listed spins' state and lists those that collide again; the
+        # remainder reads and writes theirs; the tail reads every spin's
+        # state and writes its position and flag.
+        inputs = _later_queries(lambda: plain(), lambda _spec, *a: tuple(
+            x.clone() for x in a))[1:]
+        later = [_stencil_cells(spec, *q) for q in inputs]
+
+        def rows_tests(queries):
+            if not queries:
+                return 0, 0
+            hit = torch.unique(torch.cat(queries))
+            return (int(spec.cell_counts[hit].sum()) * 12 * size
+                    + hit.numel() * 4,
+                    sum(int(spec.cell_counts[c].sum()) for c in queries))
+        second_bytes, second_tests = rows_tests(later[:1])
+        rem_bytes, rem_tests = rows_tests(later[1:])
+        all_bytes, later_tests = rows_tests(later)
+        state = 14 * size + 24
+        second_bound, second_by = bound(
+            second_bytes + listed * state + again * 4, second_tests * 52,
+            name)
+        remainder_bound, remainder_by = bound(
+            rem_bytes + again * state, rem_tests * 52, name)
+        rest_bound, rest_by = bound(
+            all_bytes + listed * (14 * size + 20) + n * (10 * size + 5),
+            later_tests * 52, name)
+        second_plain_ms = (_cuda_ms(lambda: mesh_kernel.nearest_hit_reference(
+            spec, *inputs[0]), 3)[0] if inputs else 0.0)
         record.update(
-            ms=ms, k10_ms=times["stencil_pass"],
-            rest_ms=times["bounce_pass"], tail_ms=times["finish_pass"],
+            ms=ms, sort_ms=sort_ms, pass_ms=times["stencil_pass"],
+            k10_ms=sort_ms + times["stencil_pass"],
+            second_ms=times["stencil_recheck"],
+            remainder_ms=times["bounce_pass"],
+            rest_ms=times["stencil_recheck"] + times["bounce_pass"],
+            tail_ms=times["finish_pass"],
             k7_ms=times["directions_kernel"], plain_ms=plain_ms,
-            first_plain_ms=first_plain_ms, k10_bound_ms=k10_bound,
-            k10_bound_by=k10_by, rest_bound_ms=rest_bound,
-            rest_bound_by=rest_by, listed=listed, by_k=by_k,
+            first_plain_ms=first_plain_ms, second_plain_ms=second_plain_ms,
+            k10_bound_ms=k10_bound, k10_bound_by=k10_by,
+            second_bound_ms=second_bound, second_bound_by=second_by,
+            remainder_bound_ms=remainder_bound,
+            remainder_bound_by=remainder_by, rest_bound_ms=rest_bound,
+            rest_bound_by=rest_by, listed=listed, again=again, by_k=by_k,
             records_per_query=tests / n, later_tests=later_tests)
         detail += (
             f"; step {ms:.4f} ms = K7 {record['k7_ms']:.4f} + K10 "
-            f"{record['k10_ms']:.4f} (bound {k10_bound:.4f}, {k10_by}; "
-            f"{tests / n:.2f} records and {cells.numel() / n:.3f} cells per "
-            f"query) + remainder {record['rest_ms']:.4f} (bound "
-            f"{rest_bound:.4f}, {rest_by}; {listed} spins listed, "
-            f"{later_tests} records tested by the later checks) + tail "
-            f"{record['tail_ms']:.4f} ms; checks by k {by_k}; plain loop on "
-            f"the gather query {plain_ms:.1f} ms per step (first pass "
-            f"{first_plain_ms:.1f} ms)")
+            f"{record['k10_ms']:.4f} (sort {sort_ms:.4f}: "
+            + ", ".join(f"{k} {times[k]:.4f}" for k in PERCELL_SORT)
+            + f"; first pass {record['pass_ms']:.4f}; bound "
+            f"{k10_bound:.4f}, {k10_by}; {tests / n:.2f} records and "
+            f"{cells.numel() / n:.3f} cells per query) + second check "
+            f"{record['second_ms']:.4f} (bound {second_bound:.4f}, "
+            f"{second_by}; {listed} spins, {second_tests} records; gather "
+            f"query on its inputs {second_plain_ms:.2f} ms) + remainder "
+            f"{record['remainder_ms']:.4f} (bound {remainder_bound:.4f}, "
+            f"{remainder_by}; {again} spins, {rem_tests} records) + tail "
+            f"{record['tail_ms']:.4f} ms; the later checks and tail "
+            f"together bound {rest_bound:.4f} ms ({rest_by}); checks by k "
+            f"{by_k}; plain loop on the gather query {plain_ms:.1f} ms per "
+            f"step (first pass {first_plain_ms:.1f} ms)")
     say(f"per-cell step vs plain loop on K10's query, {label}: {n} spins x "
         f"{steps} step(s), {differ} spins not bit for bit equal (max |diff| "
         f"{err:.3g}), {exc} over the budget of {max_iter}, {crossings} "
-        f"crossings" + detail)
+        f"crossings; last step's lists {lists[0]} after the first pass, "
+        f"{lists[1]} after the second check" + detail)
     if not ok:
         raise AssertionError(f"per-cell step ({label}) disagrees with the "
                              "plain loop")
@@ -3371,12 +3432,14 @@ def percell_on_card(smi):
                     quiet=True, final_pos=True, dtype=dtype, device="cuda"),
                 profiled=True)
             launches = runs[dtype]["launches"]
-            if (launches.get("mesh_cell") != n_t
-                    or launches.get("mesh_bounce") != n_t
+            if (any(launches.get(k) != n_t for k in ("mesh_cell",
+                                                      "mesh_cell_later",
+                                                      "mesh_bounce"))
                     or launches.get("mesh_hit") or launches.get("mesh_later")):
                 raise AssertionError(f"per-cell bundle {dtype}: launches "
-                                     f"{launches}, expected {n_t} mesh_cell "
-                                     "and mesh_bounce and no halo kernel")
+                                     f"{launches}, expected {n_t} mesh_cell, "
+                                     "mesh_cell_later and mesh_bounce and no "
+                                     "halo kernel")
     finally:
         config.use_fused = None
 
@@ -3601,16 +3664,43 @@ def main():
             "bound_ms": k10["k10_bound_ms"],
             "bound_by": k10["k10_bound_by"],
             "library_ms": None,
+            "sort_ms": k10["sort_ms"],
+            "pass_ms": k10["pass_ms"],
             "float64_ms": k10_64["k10_ms"],
             "float64_bound_ms": k10_64["k10_bound_ms"],
-            "remainder_ms": k10["rest_ms"],
-            "remainder_bound_ms": k10["rest_bound_ms"],
             "step_ms": k10["ms"],
             "step_plain_ms": k10["plain_ms"],
             "records_per_query": k10["records_per_query"],
             "query_ms": pcl["queries"][0]["ms"],
             "query_plain_ms": pcl["queries"][0]["plain_ms"],
             "query_bound_ms": pcl["queries"][0]["bound_ms"],
+        },
+        {
+            "name": "mesh_cell_later",
+            "route": "cuda",
+            "source": "disimpy_tpu_torch/csrc/mesh_hit.cu",
+            "replaces": "disimpy_tpu/engine/stepping.py:305 (the later "
+                        "passes of the per-cell stencil query, "
+                        "mesh_accel.py:253, under lax.while_loop; no "
+                        "pl.pallas_call)",
+            "launches": pcl["runs"]["float32"]["launches"][
+                "mesh_cell_later"],
+            "max_abs_err": max(r["max_abs_err"] for r in pcl["steps"]),
+            "ms": k10["second_ms"],
+            "plain_ms": k10["second_plain_ms"],
+            "bound_ms": k10["second_bound_ms"],
+            "bound_by": k10["second_bound_by"],
+            "library_ms": None,
+            "listed": k10["listed"],
+            "remainder_ms": k10["remainder_ms"],
+            "remainder_bound_ms": k10["remainder_bound_ms"],
+            "remainder_launches": pcl["runs"]["float32"]["launches"][
+                "mesh_bounce"],
+            "later_ms": k10["rest_ms"],
+            "later_bound_ms": k10["rest_bound_ms"],
+            "float64_ms": k10_64["second_ms"],
+            "float64_remainder_ms": k10_64["remainder_ms"],
+            "float64_later_bound_ms": k10_64["rest_bound_ms"],
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,7 @@ import threading
 import torch
 
 KERNELS = ("fused_epoch", "krng_draw", "mesh_hit", "analytic_step",
-           "mesh_later", "mesh_bounce", "mesh_cell")
+           "mesh_later", "mesh_bounce", "mesh_cell", "mesh_cell_later")
 counts = dict.fromkeys(KERNELS, 0)
 # Guards the counts: the parts of a split run launch from several threads.
 _lock = threading.Lock()

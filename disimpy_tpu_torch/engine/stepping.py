@@ -19,9 +19,9 @@ still colliding; each pass reads one flag back from the device.
 draws from the id-keyed streams and, on a CUDA device, runs the step as
 kernels with no host read-back: K8 (``engine/analytic_kernel.py``) for the
 analytic substrates, the mesh step of ``engine/mesh_kernel.py`` for both
-mesh layouts (K2's passes, then K9, on the halo layout; K10, then K9's
-remainder over the stencil, on the per-cell layout). Free diffusion is the
-draw kernel and one add.
+mesh layouts (K2's passes, then K9, on the halo layout; K10, its second
+check, then K9's remainder over the stencil, on the per-cell layout). Free
+diffusion is the draw kernel and one add.
 
 ``iter_exc`` semantics: a spin is flagged when it has entered the
 collision check ``max_iter`` times, and the driver excludes flagged spins

@@ -13,6 +13,16 @@ stencil (``csrc/mesh_hit.cu``); here the plain versions run.
   ``mesh_accel.nearest_hit`` bit for bit: distances, normals and the slot
   that wins, at every L, on spans (2, 2, 2) and (3, 3, 3) packs and on a
   hand-built tie across two cells.
+- So does K10's first pass as the kernel schedules it: the spins sorted
+  by the wrapped cell of their box's minimum corner (the key pass with
+  spins arriving in any order, the two-pass scan of the cells' counts in
+  blocks of 1,024 cells, the scatter), each spin then walking only the
+  offsets inside its box with its wrap stepped from the base cell's. The
+  sort's order is a permutation of the spins, grouped by cell in the
+  cells' order.
+- The plain per-cell step gives every spin the same result under a
+  permutation of the spins: the kernels' cell order and list order do not
+  change a spin's walk.
 - One plain per-cell step, fed the JAX engine's draws, against the JAX
   package's ``step_mesh`` on the same pack: positions within float32
   rounding (1e-5 step lengths), exc and crossings equal.
@@ -135,6 +145,170 @@ def k10_traversal(spec, r0, direction, rem, edge_tol, lanes):
                          rows.reshape(-1, 12)[win_rec.clamp(min=0), 9:12],
                          torch.zeros((n, 3), dtype=r0.dtype))
     return min_d, normal, win_key
+
+
+# csrc/mesh_hit.cu: cells per block of the sort's scan (kScanCells).
+K_SCAN_CELLS = 1024
+
+
+def _flat(spec, w):
+    n_sv = spec.n_sv
+    return ((w[:, 0] * n_sv[1] + w[:, 1]) * n_sv[2] + w[:, 2]).long()
+
+
+def _box(spec, r0, direction, rem):
+    """Stencil::box: each spin's offsets per axis inside its box (ext =
+    min(upper - base, spans)) and its base cell as whole voxels (sh0) plus
+    the wrapped cell (w0)."""
+    n_sv = torch.tensor(spec.n_sv, dtype=torch.int32)
+    seg_end = r0 + direction * rem[:, None]
+    base = torch.floor(torch.minimum(r0, seg_end) / spec.sv_width).to(
+        torch.int32)
+    upper = torch.maximum(torch.ceil(torch.maximum(r0, seg_end)
+                                     / spec.sv_width).to(torch.int32),
+                          base + 1)
+    ext = torch.minimum(upper - base, torch.tensor(spec.spans))
+    sh0 = torch.div(base, n_sv, rounding_mode="floor")
+    return ext, sh0, base - sh0 * n_sv
+
+
+def k10_sort(spec, r0, direction, rem, seed=0):
+    """K10's sort: stencil_cells (each spin's wrapped base cell and its
+    rank there, the spins arriving in a random order, as atomics give
+    them), stencil_sums and stencil_scan (each block of K_SCAN_CELLS
+    cells offset by the totals of the blocks before it, then the cells'
+    exclusive scan within the block), stencil_scatter. Returns the
+    permutation and each spin's cell."""
+    n = r0.shape[0]
+    _, _, w0 = _box(spec, r0, direction, rem)
+    cell = _flat(spec, w0)
+    n_cells = int(np.prod(spec.n_sv))
+    arrival = torch.randperm(n, generator=torch.Generator().manual_seed(seed))
+    fill = torch.zeros(n_cells, dtype=torch.int64)
+    rank = torch.empty(n, dtype=torch.int64)
+    for i in arrival.tolist():
+        rank[i] = fill[cell[i]]
+        fill[cell[i]] += 1
+    blocks = fill.split(K_SCAN_CELLS)
+    sums = torch.stack([b.sum() for b in blocks])
+    start = torch.cat([(torch.cumsum(b, 0) - b) + (sums[:j].sum())
+                       for j, b in enumerate(blocks)])
+    perm = torch.full((n,), -1, dtype=torch.int64)
+    perm[start[cell] + rank] = torch.arange(n)
+    return perm, cell
+
+
+def k10_sorted(spec, r0, direction, rem, edge_tol, lanes, perm):
+    """K10's first pass in plain torch, as stencil_pass runs it on the
+    sort's order ``perm``: L lanes per spin; each spin walks the offsets
+    inside its box (in _slot_offsets order) with each wrap stepped from the
+    base cell's; lane j tests records j, j + L, ... of every visited row;
+    lane 0 writes at the spin's own index. Returns (min_d, normal, winning
+    (offset, record) key), in the caller's order."""
+    n = r0.shape[0]
+    k_pad = spec.tri.shape[1] * spec.tri.shape[2]
+    rows = spec.tri.reshape(-1, k_pad, 12)
+    n_sv = torch.tensor(spec.n_sv, dtype=torch.int32)
+    r0, direction, rem = r0[perm], direction[perm], rem[perm]
+    ext, sh0, w0 = _box(spec, r0, direction, rem)
+    inf = float("inf")
+    best = torch.full((n, lanes), inf, dtype=r0.dtype)
+    key = torch.full((n, lanes), -1, dtype=torch.int64)
+    rec = torch.full((n, lanes), -1, dtype=torch.int64)
+    k = torch.arange(k_pad)
+    for o, off in enumerate(mesh_accel._slot_offsets(spec.spans)):
+        off = torch.as_tensor(off)
+        inside = torch.all(off < ext, dim=1)
+        w, sh = w0 + off, sh0.clone()
+        while bool((w >= n_sv).any()):  # Stencil::step_to
+            over = w >= n_sv
+            w, sh = torch.where(over, w - n_sv, w), sh + over.to(sh.dtype)
+        sv = _flat(spec, w)
+        t = geometry.ray_triangle_intersection(
+            rows[sv, :, :9].reshape(n, k_pad, 3, 3),
+            (r0 - sh.to(r0.dtype) * spec.voxel_size)[:, None, :],
+            direction[:, None, :], edge_tol=edge_tol)
+        t = torch.where(inside[:, None] & (k < spec.cell_counts[sv][:, None])
+                        & (t > 0), t, torch.full_like(t, inf))
+        # Lane j's first minimum in this row, then a strict < against what
+        # it kept from the earlier rows.
+        steps = -(-k_pad // lanes)
+        t = torch.cat((t, torch.full((n, steps * lanes - k_pad), inf,
+                                     dtype=t.dtype)), dim=1)
+        t = t.reshape(n, steps, lanes)
+        first = t.argmin(dim=1)
+        t_lane = t.gather(1, first[:, None, :])[:, 0, :]
+        k_lane = first * lanes + torch.arange(lanes)
+        better = t_lane < best
+        best = torch.where(better, t_lane, best)
+        key = torch.where(better, o * k_pad + k_lane, key)
+        rec = torch.where(better, sv[:, None] * k_pad + k_lane, rec)
+    min_d = best.min(dim=1).values
+    tied = torch.where(best == min_d[:, None], key,
+                       torch.full_like(key, 1 << 62))
+    win = tied.argmin(dim=1)
+    spins = torch.arange(n)
+    win_rec = rec[spins, win]
+    normal = torch.where((win_rec >= 0)[:, None],
+                         rows.reshape(-1, 12)[win_rec.clamp(min=0), 9:12],
+                         torch.zeros((n, 3), dtype=r0.dtype))
+    out_d, out_n = torch.empty_like(min_d), torch.empty_like(normal)
+    out_key = torch.empty_like(win_rec)
+    out_d[perm], out_n[perm], out_key[perm] = min_d, normal, key[spins, win]
+    return out_d, out_n, out_key
+
+
+def _crowded_inputs(spec, n=300, seed=2):
+    """Spins crowded into the cell with the most triangles and the next
+    one along x, half of them moved by whole voxels (one base cell, other
+    shifts), plus a spread: from one spin to hundreds per base cell."""
+    rng = np.random.RandomState(seed)
+    voxel = spec.voxel_size.numpy().astype(float)
+    width = spec.sv_width.numpy().astype(float)
+    corner = np.array(np.unravel_index(int(spec.cell_counts.argmax()),
+                                       spec.n_sv), dtype=float)
+    r0 = np.concatenate([
+        (corner + rng.random_sample((n, 3)) * 0.9 + 0.05) * width,
+        (corner + rng.random_sample((n, 3)) * 0.9 + [1.05, 0.05, 0.05])
+        * width])
+    r0[::2] += voxel * rng.randint(-1, 2, (len(r0[::2]), 3))
+    r0 = np.concatenate([r0, (rng.random_sample((n, 3)) * 1.4 - 0.2)
+                         * voxel])
+    direction = rng.standard_normal((len(r0), 3))
+    direction /= np.linalg.norm(direction, axis=1, keepdims=True)
+    rem = 1.0 - rng.random_sample(len(r0))
+    dtype = spec.tri.dtype
+    return tuple(torch.tensor(x, dtype=dtype) for x in (r0, direction, rem))
+
+
+# n_sv 1: every spin in one base cell, and every offset past the first
+# along an axis wraps onto that cell a whole voxel over.
+@pytest.mark.parametrize("n_sv, spans",
+                         [(1, (2, 2, 2)), (4, (2, 2, 2)), (16, (3, 3, 3))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k10_sorted_pass_equals_gather_query(per_cell, n_sv, spans, dtype):
+    spec = mesh_accel.pack_mesh(_icosphere(n_sv), 1 / STEP_L, dtype)
+    assert spec.spans == spans
+    edge_tol = mesh_kernel.EDGE_TOL[dtype]
+    for inputs in (_query_inputs(spec), _crowded_inputs(spec)):
+        r0, direction, rem = inputs
+        d_ref, n_ref = mesh_accel.nearest_hit(spec, r0, direction, rem,
+                                              edge_tol=edge_tol)
+        key_ref = _gather_key(spec, r0, direction, rem, edge_tol)
+        hits = torch.isfinite(d_ref)
+        assert int((d_ref <= rem).sum()) > 20
+        outside = ((r0 < 0) | (r0 >= spec.voxel_size)).any(dim=1)
+        assert int(outside.sum()) > 20  # the shifts are exercised
+        perm, cell = k10_sort(spec, r0, direction, rem)
+        assert torch.equal(torch.sort(perm).values, torch.arange(len(perm)))
+        assert bool((cell[perm].diff() >= 0).all())
+        for lanes in (1, 4, 32):
+            d, normal, key = k10_sorted(spec, r0, direction, rem, edge_tol,
+                                        lanes, perm)
+            assert torch.equal(d, d_ref), lanes
+            assert torch.equal(normal, n_ref), lanes
+            assert torch.equal(key[hits], key_ref[hits]), lanes
+            assert bool((key[~hits] < 0).all())
 
 
 def _gather_key(spec, r0, direction, rem, edge_tol):
@@ -336,6 +510,39 @@ def test_per_cell_simulation_matches_stored_jax_run(per_cell, oracles_dir):
         assert np.linalg.norm(p[:, 0:2] - centre, axis=1).max() < r
 
 
+@pytest.mark.parametrize("perm", [0.0, 0.5])
+def test_plain_per_cell_step_is_invariant_under_a_permutation(per_cell, perm):
+    spec = mesh_accel.pack_mesh(_icosphere(4), 1 / STEP_L, torch.float32)
+    assert tuple(spec.spans) == (2, 2, 2)
+    spec = specs.MeshSpec(**{**spec.__dict__,
+                             "perm_prob": torch.tensor(perm)})
+    # Spins within a step of the sphere's wall, inside and out, some of
+    # them moved by whole voxels.
+    rs = np.random.RandomState(5)
+    n = 1024
+    shell = rs.standard_normal((n, 3))
+    shell /= np.linalg.norm(shell, axis=1, keepdims=True)
+    voxel = spec.voxel_size.numpy().astype(float)
+    centre = voxel / 2
+    pos = (centre + (5e-6 / STEP_L) * rs.uniform(0.85, 1.15, (n, 1)) * shell
+           + voxel * rs.randint(-1, 2, (n, 3)) * (rs.random_sample((n, 1))
+                                                  < 0.2))
+    pos = torch.tensor(pos.T, dtype=torch.float32).contiguous()
+    ids = torch.arange(100, 100 + n, dtype=torch.int32)
+    eps = 64 * float(np.finfo(np.float32).eps) * 8.0
+    out = stepping.plain_step("mesh", pos, spec, eps, 1000, 31, 5, ids)
+    p = torch.randperm(n, generator=torch.Generator().manual_seed(6))
+    got = stepping.plain_step("mesh", pos[:, p].contiguous(), spec, eps,
+                              1000, 31, 5, ids[p].contiguous())
+    assert torch.equal(got[0], out[0][:, p])
+    assert torch.equal(got[1], out[1][p])
+    assert torch.equal(got[2], out[2][p])
+    # The case reaches the second check and the remainder.
+    again = stepping.plain_step("mesh", pos, spec, eps, 3, 31, 5, ids)[1]
+    listed = stepping.plain_step("mesh", pos, spec, eps, 2, 31, 5, ids)[1]
+    assert int(listed.sum()) > 100 and int(again.sum()) > 5
+
+
 class _FakeCuda(torch.Tensor):
     """A CPU tensor that says it is on CUDA, for the dispatch alone."""
 
@@ -356,10 +563,11 @@ def test_cuda_per_cell_step_dispatches_to_the_kernels(per_cell, monkeypatch):
     calls = []
 
     def kernel_step(spec_, positions, epsilon, max_iter, seed, t, ids_):
-        # What the wrapper counts where it launches K10 and the remainder.
+        # What the wrapper counts where it launches K10, the second check
+        # and the remainder.
         calls.append((spec_, max_iter, seed, t))
-        launch_count.add("mesh_cell")
-        launch_count.add("mesh_bounce")
+        for name in mesh_kernel.CELL_STEP_LAUNCHES:
+            launch_count.add(name)
         return (positions + 1, torch.zeros(n, dtype=torch.bool),
                 torch.zeros(n, dtype=torch.int32))
 
@@ -372,7 +580,9 @@ def test_cuda_per_cell_step_dispatches_to_the_kernels(per_cell, monkeypatch):
                                     1e-5, 1000, 3, 5, ids)
     assert calls == [(spec, 1000, 3, 5)]
     assert torch.equal(got, pos + 1) and not exc.any() and not cross.any()
+    assert mesh_kernel.CELL_STEP_LAUNCHES == ("mesh_cell", "mesh_cell_later",
+                                              "mesh_bounce")
     assert launch_count.counts == dict.fromkeys(launch_count.KERNELS, 0) | {
-        "mesh_cell": 1, "mesh_bounce": 1}
+        "mesh_cell": 1, "mesh_cell_later": 1, "mesh_bounce": 1}
     # On the card the query is the kernel's too.
     assert config.mesh_query_backend(spec, torch.float32, "cuda") == "kernel"
