@@ -12,6 +12,8 @@ import pytest
 from disimpy_tpu import checkpoint as jcheckpoint
 from disimpy_tpu_torch import checkpoint, gradients, meshes, simulations, substrates
 
+import torch_threads  # noqa: F401  (shares the cores among xdist workers)
+
 
 def test_checkpoint_roundtrip(tmp_path):
     path = str(tmp_path / "ckpt.npz")

@@ -32,6 +32,8 @@ from disimpy_tpu_torch.engine import (analytic_kernel, config, core, krng,
                                       launch_count, mesh_accel, mesh_kernel,
                                       rng, specs, stepping)
 
+import torch_threads  # noqa: F401  (shares the cores among xdist workers)
+
 N_SPINS, N_STEPS, N_MEAS, SEED = 48, 6, 3, 21
 STEP_L = float(np.sqrt(6 * 2e-9 * 8e-5))
 KINDS = ("free", "sphere", "cylinder", "ellipsoid", "mesh")

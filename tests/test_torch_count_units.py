@@ -22,6 +22,8 @@ import torch
 from disimpy_tpu_torch import gradients, simulations, substrates
 from disimpy_tpu_torch.engine import config, fused, fused_kernel, krng
 
+import torch_threads  # noqa: F401  (shares the cores among xdist workers)
+
 D = 2e-9
 # The epoch setup of tests/test_torch_fused.py (~1.2 um steps against the
 # 5 um closed cylinder), with the port's own directions.

@@ -20,6 +20,8 @@ import jax.numpy as jnp
 from disimpy_tpu.engine import krng as jkrng
 from disimpy_tpu_torch.engine import draw_kernel, krng, rng
 
+import torch_threads  # noqa: F401  (shares the cores among xdist workers)
+
 SEED, T_BASE = -1234567, 2**31 - 3
 
 

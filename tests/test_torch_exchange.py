@@ -34,6 +34,8 @@ from disimpy_tpu_torch import gradients, meshes, simulations, substrates
 from disimpy_tpu_torch.engine import config, core, krng, rng, stepping
 from disimpy_tpu_torch.engine.specs import SphereSpec
 
+import torch_threads  # noqa: F401  (shares the cores among xdist workers)
+
 D = 2e-9
 RADIUS = 5e-6
 T2I, T2E = 25e-3, 150e-3

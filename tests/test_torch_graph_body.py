@@ -27,6 +27,8 @@ import torch
 from disimpy_tpu_torch import gradients, simulations, substrates
 from disimpy_tpu_torch.engine import fused, fused_kernel, krng, launch_count
 
+import torch_threads  # noqa: F401  (shares the cores among xdist workers)
+
 D, DT = 2e-9, 1.2e-4
 # The stored window ran 512 spins; these tests take the first 128.
 STORED_SPINS, N_SPINS, N_STEPS, SEED = 512, 128, 10, 3

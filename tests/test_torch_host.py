@@ -18,6 +18,8 @@ from disimpy_tpu import substrates as jsub
 from disimpy_tpu import utils as jutils
 from disimpy_tpu_torch import gradients, meshes, substrates, utils
 
+import torch_threads
+
 
 def _example_gradient(n_t=1000, amplitude=0.1, lobe=200):
     gradient = np.zeros((1, n_t, 3))
@@ -133,3 +135,14 @@ def test_package_test_runners_call_pytest_on_the_port_tests(monkeypatch):
                    pathlib.Path(__file__).parent.glob("test_torch_*.py"))
     assert __file__ in files and len(files) > 10
     assert calls == [[*files, "-q"], [*files, "-x"]]
+
+
+def test_xdist_workers_share_the_cores_among_torch_threads():
+    import torch
+
+    n_threads = torch_threads.threads_per_worker()
+    if n_threads is None:
+        pytest.skip("not an xdist worker: torch keeps its default threads")
+    # tests/torch_threads.py gives each worker cores // workers torch
+    # threads, so that the workers' OpenMP regions do not wait on one another.
+    assert torch.get_num_threads() == n_threads

@@ -34,6 +34,8 @@ from disimpy_tpu.engine import fused as jfused
 from disimpy_tpu_torch import gradients, meshes, simulations, substrates
 from disimpy_tpu_torch.engine import config, fused
 
+import torch_threads  # noqa: F401  (shares the cores among xdist workers)
+
 FIELDS = ("table", "cell_start", "cell_packed", "cell_packed2", "voxel_size",
           "sv_width", "perm_prob")
 META = ("n_sv", "resort_every", "seed_salt", "eps_budget")

@@ -16,6 +16,8 @@ import jax.numpy as jnp
 from disimpy_tpu.engine import krng as jkrng
 from disimpy_tpu_torch.engine import krng
 
+import torch_threads  # noqa: F401  (shares the cores among xdist workers)
+
 SEEDS = [0, 1, 123, -5, 2**31 - 1, -2**31]
 
 

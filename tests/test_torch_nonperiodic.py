@@ -35,6 +35,8 @@ from disimpy_tpu.engine import fused as jfused
 from disimpy_tpu_torch import simulations, substrates
 from disimpy_tpu_torch.engine import fused
 
+import torch_threads  # noqa: F401  (shares the cores among xdist workers)
+
 D = 2e-9
 # The setup of scripts/make_torch_oracles.py's nonperiodic_run.
 NP_SPINS, NP_STEPS, NP_SEED = 512, 8, 123

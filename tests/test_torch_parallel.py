@@ -16,6 +16,8 @@ from disimpy_tpu_torch import gradients, meshes, parallel, simulations, substrat
 from disimpy_tpu_torch.engine import config
 from disimpy_tpu_torch.engine.specs import SphereSpec
 
+import torch_threads  # noqa: F401  (shares the cores among xdist workers)
+
 D = 2e-9
 N_SPINS = 250  # not divisible by 3: the parts differ in size
 

@@ -55,6 +55,8 @@ from disimpy_tpu_torch.engine import (config, geometry, launch_count,
                                       mesh_accel, mesh_kernel, specs,
                                       stepping)
 
+import torch_threads  # noqa: F401  (shares the cores among xdist workers)
+
 D = 2e-9
 STEP_L = float(np.sqrt(6 * D * 8e-5))
 MESH_FIELDS = ("tri", "cell_counts", "voxel_size", "sv_width", "perm_prob")

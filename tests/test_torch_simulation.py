@@ -29,6 +29,8 @@ from disimpy_tpu.engine import fused as jfused
 from disimpy_tpu_torch import gradients, simulations, substrates
 from disimpy_tpu_torch.engine import fused
 
+import torch_threads  # noqa: F401  (shares the cores among xdist workers)
+
 D = 2e-9
 N_SPINS, N_STEPS, SEED = 512, 10, 3
 # ~1.2 um steps against the 5 um cylinder: several bounces per step.

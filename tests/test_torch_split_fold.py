@@ -27,6 +27,8 @@ import torch
 import chip_smoke
 from disimpy_tpu_torch.engine import fused_kernel
 
+import torch_threads  # noqa: F401  (shares the cores among xdist workers)
+
 INF = float("inf")
 # Distances drawn for the rows: a small set, misses (inf) included.
 T_SET = np.array([0.25, 0.5, 0.5, 0.75, INF, INF])

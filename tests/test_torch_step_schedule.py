@@ -28,6 +28,8 @@ from disimpy_tpu_torch import meshes, substrates
 from disimpy_tpu_torch.engine import mesh_accel, mesh_kernel, rng, specs
 from disimpy_tpu_torch.engine import stepping
 
+import torch_threads  # noqa: F401  (shares the cores among xdist workers)
+
 STEP_L = float(np.sqrt(6 * 2e-9 * 8e-5))
 SEED, T = 31, 5
 EPS = 64 * float(np.finfo(np.float32).eps) * 8.0

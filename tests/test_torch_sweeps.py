@@ -15,6 +15,8 @@ import pytest
 
 from disimpy_tpu_torch import gradients, simulations, substrates, sweeps
 
+import torch_threads  # noqa: F401  (shares the cores among xdist workers)
+
 D = 2e-9
 ORIENTATION = np.array([0.0, 1.0, 1.0])
 
