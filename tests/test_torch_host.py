@@ -146,3 +146,41 @@ def test_xdist_workers_share_the_cores_among_torch_threads():
     # tests/torch_threads.py gives each worker cores // workers torch
     # threads, so that the workers' OpenMP regions do not wait on one another.
     assert torch.get_num_threads() == n_threads
+
+
+def test_xdist_splits_only_the_listed_files_into_tests():
+    import importlib.util
+    import pathlib
+
+    scheduler = pytest.importorskip("xdist.scheduler")
+    path = pathlib.Path(__file__).parents[1] / "conftest.py"
+    spec = importlib.util.spec_from_file_location("root_conftest", path)
+    root_conftest = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(root_conftest)
+
+    # tests/test_fused.py: one work unit per test, so its interpret-mode
+    # tests spread over the workers; any other file stays one work unit.
+    fused = ["tests/test_fused.py::test_align_bit_identical",
+             "tests/test_fused.py::test_passgate_bit_identical"]
+    gradients = "tests/test_gradients.py"
+    other = [f"{gradients}::test_calc_q_is_cumulative_trapezoid",
+             f"{gradients}::test_interpolate_gradient_matches_np_interp"]
+    unit = root_conftest.work_unit
+    assert unit(fused[0]) == fused[0] != unit(fused[1]) == fused[1]
+    assert unit(other[0]) == unit(other[1]) == gradients
+
+    class Config:  # the options the hook and xdist's scheduler read
+        def __init__(self, dist):
+            self.values = {"dist": dist, "tx": ["2*popen"]}
+
+        def getoption(self, name):
+            return self.values[name]
+
+        getvalue = getoption
+
+    make = root_conftest.pytest_xdist_make_scheduler
+    sched = make(Config("loadfile"), None)
+    assert isinstance(sched, scheduler.LoadFileScheduling)
+    assert sched._split_scope(fused[0]) == fused[0]
+    assert sched._split_scope(other[0]) == gradients
+    assert make(Config("load"), None) is None
