@@ -1,10 +1,6 @@
-"""The reference project's open-ended mesh cylinder: vertices, faces and the
-substrate's arguments. ``cylinder_mesh.npz`` holds the mesh of its
-``cylinder_mesh_open.pkl``: float64 vertices (m), int32 faces."""
+"""The reference project's open-ended mesh cylinder: the program's
+substrate and the plain reference's walk, both from ``cylinder_mesh.npz``,
+the mesh of its ``cylinder_mesh_open.pkl``: float64 vertices (m), int32
+faces."""
 
-from harness import meshfile
-
-
-def build(sizes, traffic):
-    """(vertices (m), faces, keyword arguments of ``substrates.mesh``)."""
-    return meshfile.build(sizes, traffic["n_walkers"])
+from harness.meshfile import reference, substrate  # noqa: F401

@@ -7,7 +7,9 @@ import numpy as np
 
 
 def unchanged(sim, *args, **kwargs):
-    """A window that returns the state it was given."""
+    """A window that returns the state it was given: the fused engine's,
+    and the classic engine's, which every geometry but a fused mesh runs
+    (free, analytic, classic mesh)."""
     from disimpy_tpu_torch.engine import core, fused
 
     def fused_window(spec, positions, phases, iter_exc, *a, **k):
@@ -26,14 +28,19 @@ def unchanged(sim, *args, **kwargs):
 
 def half_batch(sim, n, diffusivity, gradient, dt, substrate, **kwargs):
     """Half of the spins left out, the signal scaled up from the rest and
-    the rest's final positions standing in for theirs."""
-    start = substrate.init_pos
-    if isinstance(start, np.ndarray):
+    the rest's final positions standing in for theirs. Starts given as an
+    array keep their first half; any other substrate (a seeding rule, an
+    analytic or free geometry with no ``init_pos``) leaves the starts to
+    the program."""
+    start = getattr(substrate, "init_pos", None)
+    given = isinstance(start, np.ndarray)
+    if given:
         substrate.init_pos = start[:n // 2]
     try:
         out = sim(n // 2, diffusivity, gradient, dt, substrate, **kwargs)
     finally:
-        substrate.init_pos = start
+        if given:
+            substrate.init_pos = start
     if isinstance(out, tuple):
         return (2.0 * out[0], np.concatenate([out[1], out[1]])[:n],
                 *out[2:])

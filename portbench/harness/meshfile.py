@@ -5,8 +5,11 @@ A configuration whose geometry is a published mesh keeps it as
 arguments its source gives ``substrates.mesh``: ``periodic``, and where
 the source sets them ``padding``, ``n_sv`` and ``init_pos`` ("uniform", or
 ``{"point": [x, y, z]}``, every spin starting there, metres in the padded
-voxel). The builder hands the same arrays to the program and to the
-reference.
+voxel). ``substrate`` and ``reference`` are the two functions that a
+mesh configuration's builder (``configs/<config>.py``) names: each builds
+the same arrays from the file, the one for the program
+(``substrates.mesh``), the other for the plain reference
+(``reference.walk.simulate``, periodic impermeable meshes).
 """
 
 import os
@@ -32,3 +35,25 @@ def build(sizes, n_walkers):
         init = np.zeros((n_walkers, 3)) + np.asarray(init["point"])
     kwargs["init_pos"] = init
     return vertices, faces, kwargs
+
+
+def substrate(sizes, traffic):
+    """The program's substrate: ``substrates.mesh`` of the file."""
+    from disimpy_tpu_torch import substrates
+
+    vertices, faces, kwargs = build(sizes, traffic["n_walkers"])
+    return substrates.mesh(vertices, faces, quiet=True, **kwargs)
+
+
+def reference(sizes, traffic, seed, gradient, cfg_dtype, dtype, device, work,
+              max_iter):
+    """The plain reference's walk of one call (``walk.Walk``) on the same
+    arrays."""
+    from reference import walk
+
+    vertices, faces, kwargs = build(sizes, traffic["n_walkers"])
+    return walk.simulate(
+        vertices, faces, traffic["n_walkers"], traffic["diffusivity"],
+        gradient, traffic["dt"], seed, kwargs["init_pos"], traffic["engine"],
+        cfg_dtype, dtype=dtype, device=device, max_iter=max_iter, work=work,
+        padding=kwargs.get("padding", np.zeros(3)))

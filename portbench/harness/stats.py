@@ -34,15 +34,17 @@ def signal_gap(program, reference, n_walkers):
 def position_share(program, reference, voxel, step, tol):
     """The share of spins whose final position lies more than ``tol`` step
     lengths from the reference's, each difference taken to its nearest
-    periodic image of the voxel; 1 where the shapes differ or a position is
-    not finite."""
+    periodic image of the voxel (along an axis whose side is infinite, a
+    geometry that does not repeat, the plain difference); 1 where the
+    shapes differ or a position is not finite."""
     program = np.asarray(program, dtype=float)
     reference = np.asarray(reference, dtype=float)
     if program.shape != reference.shape or not np.all(np.isfinite(program)):
         return 1.0
     voxel = np.asarray(voxel, dtype=float)
     d = program - reference
-    d -= np.round(d / voxel) * voxel
+    wrap = np.isfinite(voxel)
+    d[:, wrap] -= np.round(d[:, wrap] / voxel[wrap]) * voxel[wrap]
     far = np.linalg.norm(d, axis=1) > tol * step
     return float(np.mean(far))
 

@@ -2,8 +2,11 @@
 table, the device's busy time, its idle gaps and the breakdown line.
 
 The reduction is a copy of the busy-share arithmetic the port's smoke test
-uses: busy time sums each device event's own time (one stream, so the
-events do not overlap); kernels are summed by name.
+uses: a card's busy time sums its device events' own times (one stream a
+card, so its events do not overlap); kernels are summed by name over every
+card. Each event keeps the index of the card it ran on, so the busy time of
+a run over several cards is the mean of the cards' own: cards busy at the
+same time never add up to more than the window.
 """
 
 import re
@@ -26,18 +29,25 @@ def kernel_id(name):
     return m.group(1) if m else name
 
 
-def traced(run_calls):
-    """Run ``run_calls()`` under the profiler. Returns (device events as
-    (name, start_us, end_us, self_us), host events as (name, start_us,
-    end_us), wall seconds)."""
+def synchronize(cards):
+    """Wait for each of the first ``cards`` cards."""
+    for card in range(cards):
+        torch.cuda.synchronize(card)
+
+
+def traced(run_calls, cards=1):
+    """Run ``run_calls()`` under the profiler, the window closing once each
+    of the first ``cards`` cards has finished. Returns (device events as
+    (name, start_us, end_us, self_us, card), host events as (name,
+    start_us, end_us), wall seconds)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
+    synchronize(cards)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
         run_calls()
-        torch.cuda.synchronize()
+        synchronize(cards)
         wall = time.perf_counter() - t0
     device, host = [], []
     for e in prof.events():
@@ -46,19 +56,42 @@ def traced(run_calls):
             if (getattr(e, "is_user_annotation", False)
                     or e.name.startswith(SPAN_PREFIX)):
                 continue
-            device.append((e.name, *span, e.self_device_time_total))
+            device.append((e.name, *span, e.self_device_time_total,
+                           e.device_index))
         elif e.device_type.name == "CPU":
             host.append((e.name, *span))
     return device, host, wall
 
 
 def kernel_table(device):
-    """{name: (seconds, count)} of the device events."""
+    """{name: (seconds, count)} of the device events, over every card."""
     table = {}
-    for name, _, _, self_us in device:
+    for name, _, _, self_us, *_ in device:
         s, c = table.get(name, (0.0, 0))
         table[name] = (s + self_us * 1e-6, c + 1)
     return table
+
+
+def card_busy(device, cards):
+    """Each of the run's first ``cards`` cards' busy seconds: the summed
+    own time of its events (events as ``traced`` gives them)."""
+    out = []
+    for card in range(cards):
+        table = kernel_table([e for e in device if e[4] == card])
+        out.append(sum(s for s, _ in table.values()))
+    return out
+
+
+def busy_seconds(device, cards):
+    """The device's busy seconds: the cards' own, averaged over the run's
+    ``cards`` cards, so a card with no event counts as idle."""
+    return sum(card_busy(device, cards)) / cards
+
+
+def memory_peak(cards, read=torch.cuda.max_memory_allocated):
+    """The peak bytes allocated on the fullest of the first ``cards``
+    cards, each read by ``read(card)``."""
+    return max(read(card) for card in range(cards))
 
 
 def idle_gaps(device, host, first=None, last=None):
@@ -66,7 +99,7 @@ def idle_gaps(device, host, first=None, last=None):
     each labelled with the innermost host event running at its middle
     (``host: no operator`` when none). ``first`` and ``last`` (us) bound
     the window: the gap before the first event and after the last count."""
-    spans = sorted((s, e) for _, s, e, _ in device)
+    spans = sorted((e[1], e[2]) for e in device)
     gaps = []
     end = first if first is not None else (spans[0][0] if spans else 0)
     for s, e in spans:

@@ -7,15 +7,16 @@ benchmark's own runs).
 
 In one process: the cell's set-up as a benchmark run makes it, then for
 each seed one call of the program and the plain reference of that call
-(the numbers the benchmark compares, ``stats.COMPARED``), and for the
-first ``--control-seeds`` seeds the control: the reference computed in the
-precision below the configured one (``limits/<cell>.json``'s
-``control``) in the program's place, against the reference. Then each
-fault of ``faults.py`` named in ``--faults`` on the first
-``--fault-seeds`` seeds, each a whole ``run.run`` of the cell at its own
-size with the fault planted under the timed call, judged by the run's own
-comparison. A number's limit lies above its largest program reading and
-below the smallest reading of the control or fault it is to catch.
+(the configuration builder's ``reference``; the numbers the benchmark
+compares, ``stats.COMPARED``), and for the first ``--control-seeds``
+seeds the control: the reference computed in the precision below the
+configured one (``limits/<cell>.json``'s ``control``) in the program's
+place, against the reference. Then each fault of ``faults.py`` named in
+``--faults`` on the first ``--fault-seeds`` seeds, each a whole
+``run.run`` of the cell at its own size with the fault planted under the
+timed call, judged by the run's own comparison. A number's limit lies
+above its largest program reading and below the smallest reading of the
+control or fault it is to catch.
 """
 
 import argparse
@@ -44,37 +45,35 @@ def main(argv=None):
 
     import torch
 
-    from disimpy_tpu_torch import simulations, substrates
-    from reference import walk
+    from disimpy_tpu_torch import simulations
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     seeds = [int(s) for s in args.seeds.split(",")]
     _, workload, traffic, limits, sizes, builder = run._cell(args.workload, {})
     n = traffic["n_walkers"]
-    vertices, faces, sub_kwargs = builder.build(sizes, traffic)
     gradient = waveforms.make(traffic)
-    substrate = substrates.mesh(vertices, faces, quiet=True, **sub_kwargs)
+    substrate = builder.substrate(sizes, traffic)
     outputs = {}
     for seed in seeds:
         outputs[seed] = simulations.simulation(
             n, traffic["diffusivity"], gradient, traffic["dt"], substrate,
-            seed=seed, dtype=traffic["dtype"], device="cuda",
-            **traffic["simulation"])
+            **run.call_kwargs(traffic, seed, "cuda"))
     substrate = None
     torch.cuda.empty_cache()
     control = limits["control"]
-    common = (vertices, faces, n, traffic["diffusivity"], gradient,
-              traffic["dt"])
-    semantics = (sub_kwargs["init_pos"], traffic["engine"],
-                 getattr(torch, traffic["dtype"]))
-    padding = sub_kwargs.get("padding", (0.0, 0.0, 0.0))
+
+    def reference(seed, dtype=torch.float64,
+                  max_iter=traffic["simulation"].get("max_iter", 1000)):
+        return builder.reference(
+            sizes, traffic, seed, gradient,
+            cfg_dtype=getattr(torch, traffic["dtype"]), dtype=dtype,
+            device="cuda", work=False, max_iter=max_iter)
 
     rows = []
     for i, seed in enumerate(seeds):
         t0 = time.perf_counter()
-        ref = walk.simulate(*common, seed, *semantics, device="cuda",
-                            padding=padding)
+        ref = reference(seed)
         ref_s = time.perf_counter() - t0
         signal, positions = outputs[seed]
         row = {"seed": seed,
@@ -82,10 +81,8 @@ def main(argv=None):
                "reference_s": ref_s}
         if i < args.control_seeds:
             t0 = time.perf_counter()
-            low = walk.simulate(*common, seed, *semantics,
-                                dtype=getattr(torch, control["dtype"]),
-                                device="cuda", padding=padding,
-                                max_iter=control.get("max_iter", 1000))
+            low = reference(seed, getattr(torch, control["dtype"]),
+                            control.get("max_iter", 1000))
             row["control"] = stats.compared(low.signal, low.positions, ref, n)
             row["control_s"] = time.perf_counter() - t0
         print(json.dumps(row), flush=True)

@@ -6,8 +6,9 @@
 A cell (an entry of BENCHMARK.json's ``workloads``) is a configuration
 (``configs/<config>.json`` and the builder beside it) under a traffic mix
 (``traffic/<traffic>.json``). Every call is a whole ``simulation()`` on one
-substrate built in set-up, with the same arguments and the next seed: a
-closed loop with one caller, as a researcher averaging seeds runs it.
+substrate built in set-up by the builder's ``substrate(sizes, traffic)``,
+with the same arguments and the next seed: a closed loop with one caller,
+as a researcher averaging seeds runs it.
 
 Set-up (imports, CUDA, the kernels' build or load, the substrate, the pack
 and one warm-up call that captures the CUDA graphs) ends at the first timed
@@ -15,8 +16,9 @@ call. With ``--trace 0`` the window runs calls for ``--seconds`` and the
 result carries the cell's end-to-end metrics; with ``--trace 1`` a few
 calls run under torch.profiler and it carries the per-layer metrics, each
 read by ``metrics/<metric>.py``. Either way, once the window has closed and
-the program's state is freed, the plain reference (``reference/walk.py``)
-recomputes a sample of the window's calls, drawn from the seed, and
+the program's state is freed, the plain reference (the builder's
+``reference(...)``: for a mesh, ``reference/walk.py``) recomputes a sample
+of the window's calls, drawn from the seed, and
 ``correct`` says whether each compared number of every one (the signals'
 widest gap, the share of spins whose final position departs) is within the
 cell's limit (``limits/<cell>.json``). The result is the last line of
@@ -84,6 +86,16 @@ def _cell(name, overrides):
     return manifest, workload, traffic, limits, sizes, builder
 
 
+def call_kwargs(traffic, seed, device):
+    """The keyword arguments of one call's ``simulation()``. A traffic that
+    splits the spins over cards names them (``devices``), which the
+    program then takes in place of ``device``."""
+    kwargs = dict(traffic["simulation"], seed=seed, dtype=traffic["dtype"])
+    if "devices" not in kwargs:
+        kwargs["device"] = device
+    return kwargs
+
+
 def run(name, seed, seconds, trace_on, device="cuda", overrides=None,
         program=None):
     """One run of cell ``name``; returns the result line as a dict.
@@ -98,27 +110,26 @@ def run(name, seed, seconds, trace_on, device="cuda", overrides=None,
 
     manifest, workload, traffic, limits, sizes, builder = _cell(
         name, overrides or {})
-    from disimpy_tpu_torch import simulations, substrates
+    from disimpy_tpu_torch import simulations
 
     metrics = bench_manifest.metrics_of(manifest, name, trace_on)
     readers = {m["name"]: bench_manifest.metric_reader(m["name"])
                for m in metrics}
     n, n_t = traffic["n_walkers"], traffic["n_t"]
     dtype = traffic["dtype"]
-    vertices, faces, sub_kwargs = builder.build(sizes, traffic)
+    cards = workload["chips"]
     gradient = waveforms.make(traffic)
-    substrate = substrates.mesh(vertices, faces, quiet=True, **sub_kwargs)
+    substrate = builder.substrate(sizes, traffic)
     cuda = torch.device(device).type == "cuda"
 
     def sync():
         if cuda:
-            torch.cuda.synchronize()
+            trace.synchronize(cards)
 
     def call(call_seed):
         args = (n, traffic["diffusivity"], gradient, traffic["dt"],
                 substrate)
-        kwargs = dict(traffic["simulation"], seed=call_seed, dtype=dtype,
-                      device=device)
+        kwargs = call_kwargs(traffic, call_seed, device)
         t0 = time.perf_counter()
         if program is None:
             out = simulations.simulation(*args, **kwargs)
@@ -165,13 +176,15 @@ def run(name, seed, seconds, trace_on, device="cuda", overrides=None,
                     one(k)
 
         if cuda:
-            device_ev, host_ev, ctx.window_s = trace.traced(traced_calls)
+            device_ev, host_ev, ctx.window_s = trace.traced(traced_calls,
+                                                            cards)
         else:
             t0 = time.perf_counter()
             traced_calls()
             device_ev, host_ev, ctx.window_s = [], [], time.perf_counter() - t0
         ctx.kernels = trace.kernel_table(device_ev)
-        ctx.busy_s = sum(s for s, _ in ctx.kernels.values())
+        ctx.busy_s = trace.busy_seconds(device_ev, cards)
+        ctx.card_busy_s = trace.card_busy(device_ev, cards)
         ctx.events = sum(c for _, c in ctx.kernels.values())
         bounds = [(s, e) for nm, s, e in host_ev if nm == "portbench.window"]
         first, last = bounds[0] if bounds else (None, None)
@@ -185,7 +198,7 @@ def run(name, seed, seconds, trace_on, device="cuda", overrides=None,
             if time.perf_counter() - t0 >= seconds:
                 break
         ctx.window_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    peak = trace.memory_peak(cards) if cuda else 0
 
     for reader in readers.values():
         if hasattr(reader, "prepare"):
@@ -197,17 +210,15 @@ def run(name, seed, seconds, trace_on, device="cuda", overrides=None,
     if cuda:
         torch.cuda.empty_cache()
 
-    from reference import walk
-
     readings = {key: [] for key in stats.COMPARED}
     t_ref = time.perf_counter()
     for i, positions in sorted(sample, key=lambda item: item[0]):
         call_seed, _, signal = ctx.calls[i]
-        out = walk.simulate(
-            vertices, faces, n, traffic["diffusivity"], gradient,
-            traffic["dt"], call_seed, sub_kwargs["init_pos"],
-            traffic["engine"], getattr(torch, dtype), device=device,
-            work=trace_on, padding=sub_kwargs.get("padding", np.zeros(3)))
+        out = builder.reference(
+            sizes, traffic, call_seed, gradient,
+            cfg_dtype=getattr(torch, dtype), dtype=torch.float64,
+            device=device, work=trace_on,
+            max_iter=traffic["simulation"].get("max_iter", 1000))
         ctx.reference[call_seed] = out
         for key, value in stats.compared(signal, positions, out, n).items():
             readings[key].append(value)
@@ -267,7 +278,8 @@ def _write_trace(name, seed, ctx):
     path = os.path.join(OUT_DIR, f"{name}-{seed}-trace.json")
     with open(path, "w") as f:
         json.dump({"calls": len(ctx.calls), "window_s": ctx.window_s,
-                   "busy_s": ctx.busy_s, "gaps": ctx.gaps,
+                   "busy_s": ctx.busy_s, "card_busy_s": ctx.card_busy_s,
+                   "gaps": ctx.gaps,
                    "kernels": {k: list(v) for k, v in table}}, f, indent=1)
 
 

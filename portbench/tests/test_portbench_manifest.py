@@ -25,8 +25,8 @@ def test_every_cell_finds_its_files():
     for w in m["workloads"]:
         _, config = manifest.cell(m, w["name"])
         sizes, builder = manifest.config_builder(config)
-        assert hasattr(builder, "build") and sizes["reduced"] == config[
-            "reduced"]
+        assert callable(builder.substrate) and callable(builder.reference)
+        assert sizes["reduced"] == config["reduced"]
         traffic = manifest.read_json("traffic", w["traffic"] + ".json")
         assert traffic["dtype"] in ("float32", "float64")
         limits = manifest.read_json("limits", w["name"] + ".json")
